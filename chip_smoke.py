@@ -4,9 +4,11 @@
     python3 chip_smoke.py
 
 Phases:
-  1. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (nvcc
-     into ``build/kernels``) and print the card's name and power limit;
-  2. hold each kernel against its plain PyTorch version on the card, at
+  1. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
+     nvcc per source into ``build/kernels``, all started together), report
+     each source's registers and spills, and print the card's name and
+     power limit;
+  2. hold ``block_spmm`` against its plain PyTorch version on the card, at
      unit shapes and at the FinBench workload shape, and time kernel, plain
      version and a ``torch.matmul`` fp32 yardstick;
   3. the SNB main path: ``snb_like(seed=0)`` through ``GraphSession`` —
@@ -14,10 +16,19 @@ Phases:
      rows), CE/DE/DV writes with recover, ``check_consistency``;
   4. FinBench through the kernel: a session with dense hops on
      ``block_spmm`` against a segment-hop session, reads bit-exact in reach
-     rows and DBHit/Rows, writes keeping every view consistent.
+     rows and DBHit/Rows, writes keeping every view consistent;
+  5. segment aggregation: ``segment_multi_agg`` against its plain version
+     at unit shapes and on messages bucketed from the SNB graph, timed; then
+     its main path, ``bucketize_messages`` + ``segment_multi_agg``, checked
+     against a scatter formulation of the same aggregates;
+  6. attention: ``flash_attention`` against its plain version at the
+     reference's test shapes (fp32) and at starcoder2-3b and gemma-2b
+     shapes (bf16), timed beside ``scaled_dot_product_attention``; then its
+     main path, the three model shapes once more.
 
-Kernel launch counts are zeroed just before phase 3 and read just after
-phase 4 (comparison launches of phase 2 do not count).  Every failed check
+Each kernel's launch count is zeroed just before its main path and read
+just after it: phases 3-4 for ``block_spmm``, the ends of phases 5 and 6
+for the others (comparison launches do not count).  Every failed check
 raises, so the script exits non-zero and prints no result line.  It needs
 one CUDA device; without one it exits with code 2.
 """
@@ -37,10 +48,36 @@ ROOT = Path(__file__).resolve().parent
 
 # card peaks (NVIDIA H100 SXM data sheet, dense, at the 700 W limit)
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 UNIT_SHAPES = [(8, 16, 12), (128, 128, 128), (100, 200, 150), (256, 384, 128)]
 WORKLOAD_SHAPE = (256, 27264, 27264)   # src_block x node_cap x node_cap
+
+# segment_multi_agg: the reference's test shapes [N, W, D] and tolerances;
+# messages of PNA's full width (d_hidden = 75) on the SNB graph's edges
+AGG_UNIT_SHAPES = [(16, 4, 8), (64, 16, 128), (33, 7, 75)]
+AGG_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+PNA_D_HIDDEN = 75
+
+# flash_attention: unit shapes (B, Hq, Hkv, Sq, Sk, D) in fp32 -- the
+# reference's test shapes, then decode (Sq < Sk, ragged) and grouped-KV
+# shapes that hold the shifted diagonal and the head mapping -- and model
+# shapes in bf16, causal, from the configs of starcoder2-3b (24 query heads
+# over 2 KV heads, head_dim 128) and gemma-2b (8 over 1, head_dim 256)
+ATTN_UNIT_SHAPES = [(1, 2, 2, 128, 128, 64), (2, 4, 4, 256, 256, 128),
+                    (1, 1, 1, 384, 384, 128), (1, 4, 2, 100, 173, 64),
+                    (1, 6, 2, 128, 4096, 128), (1, 4, 1, 64, 300, 256)]
+ATTN_MODEL_SHAPES = {
+    "starcoder2-3b prefill": (1, 24, 2, 4096, 4096, 128),
+    "starcoder2-3b chunked decode": (1, 24, 2, 128, 4096, 128),
+    "gemma-2b prefill": (1, 8, 1, 4096, 4096, 256),
+}
+# (rtol, atol).  Kernel and plain version both compute in fp32 and round
+# once to the output type, so a bf16 output may differ by one bf16 step
+# (2^-8 to 2^-7 of its magnitude) and no more; a diagonal shifted by one
+# key at the decode shape moves outputs by several steps.
+ATTN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2 ** -7, 1e-4)}
 
 
 def log(msg: str) -> None:
@@ -64,6 +101,11 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def reset_launches(ops) -> None:
+    for fn in (ops.block_spmm, ops.segment_multi_agg, ops.flash_attention):
+        fn.launches = 0
 
 
 def nvidia_smi() -> str:
@@ -267,6 +309,221 @@ def finbench_phase(scale: float = 1.0, device: str = "cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 5: segment aggregation
+# ---------------------------------------------------------------------------
+
+def agg_check(ops, ref, msg, valid, what: str) -> float:
+    """Kernel against plain version (messages cast to fp32, as the kernel
+    casts them) at the reference's tolerance; returns the max abs error."""
+    got = ops.segment_multi_agg(msg, valid)
+    want = ref.segment_multi_agg_ref(msg.to(torch.float32), valid)
+    tol = AGG_TOL[msg.dtype]
+    err = 0.0
+    for name, g, w in zip(("mean", "max", "min", "std"), got, want):
+        check(torch.allclose(g, w, rtol=tol, atol=tol),
+              f"segment_multi_agg {name} != plain at {what}")
+        if g.numel():
+            err = max(err, float((g - w).abs().max()))
+    return err
+
+
+def scatter_aggregates(dst, msg, num_nodes: int):
+    """Mean (float64 sums by ``index_add_``), max and min
+    (``scatter_reduce``) per destination: the reference's scatter oracle."""
+    D = msg.shape[1]
+    d64 = msg.to(torch.float64)
+    s = torch.zeros((num_nodes, D), dtype=torch.float64,
+                    device=msg.device).index_add_(0, dst, d64)
+    cnt = torch.bincount(dst, minlength=num_nodes).to(torch.float64)
+    mean = (s / cnt.clamp_min(1.0)[:, None]).to(torch.float32)
+    idx = dst[:, None].expand_as(msg)
+    zero = torch.zeros((num_nodes, D), device=msg.device)
+    mx = zero.scatter_reduce(0, idx, msg, "amax", include_self=False)
+    mn = zero.scatter_reduce(0, idx, msg, "amin", include_self=False)
+    return mean, mx, mn
+
+
+def segment_phase(ops, ref) -> dict:
+    from repro_torch.data.synthetic import snb_like
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    max_err = 0.0
+    for shape in AGG_UNIT_SHAPES:
+        for dtype in AGG_TOL:
+            msg = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            valid = torch.rand(shape[:2], generator=gen, device=dev) < 0.7
+            max_err = max(max_err, agg_check(ops, ref, msg, valid,
+                                             f"{shape} {dtype}"))
+    log(f"phase 5: unit shapes within tolerance "
+        f"({len(AGG_UNIT_SHAPES) * len(AGG_TOL)} cases)")
+
+    g, _, _ = snb_like(seed=0, device="cuda")
+    N = g.num_nodes()
+    dst = g.edge_dst[g.edge_alive].to(torch.int64)
+    msg_e = torch.randn((dst.shape[0], PNA_D_HIDDEN), generator=gen,
+                        device=dev)
+    del g
+    bucketed, valid = ops.bucketize_messages(dst, msg_e, N)
+    W = bucketed.shape[1]
+    n_valid = int(valid.sum())
+    check(n_valid == dst.shape[0], "bucketize_messages dropped messages "
+                                   "below the maximum in-degree")
+    timings = {}
+    for dtype in AGG_TOL:
+        m = bucketed.to(dtype)
+        max_err = max(max_err, agg_check(ops, ref, m, valid,
+                                         f"SNB [{N}, {W}, {PNA_D_HIDDEN}] "
+                                         f"{dtype}"))
+        timings[str(dtype).replace("torch.", "")] = {
+            "ms": cuda_ms(lambda: ops.segment_multi_agg(m, valid), 20),
+            "plain_ms": cuda_ms(lambda: ref.segment_multi_agg_ref(
+                m.to(torch.float32), valid), 5),
+        }
+        del m
+    log(f"phase 5: SNB messages E={dst.shape[0]} -> [{N}, {W}, "
+        f"{PNA_D_HIDDEN}] ({bucketed.numel() * 4} B fp32, {n_valid} valid "
+        f"slots) within tolerance in fp32 and bf16; ms: "
+        + json.dumps(timings))
+
+    # bytes the kernel must move: valid, the valid slots' messages, 4 outputs
+    out_bytes = 4 * N * PNA_D_HIDDEN * 4
+    need = valid.numel() + n_valid * PNA_D_HIDDEN * 4 + out_bytes
+    whole = valid.numel() + bucketed.numel() * 4 + out_bytes
+    log(f"phase 5: bytes needed {need} (whole bucketed tensor {whole})")
+    del bucketed, valid
+
+    reset_launches(ops)
+    b, v = ops.bucketize_messages(dst, msg_e, N)          # the main path
+    mean, mx, mn, std = ops.segment_multi_agg(b, v)
+    launches = ops.segment_multi_agg.launches
+    want_mean, want_max, want_min = scatter_aggregates(dst, msg_e, N)
+    check(torch.allclose(mean, want_mean, rtol=1e-5, atol=1e-6)
+          and torch.equal(mx, want_max) and torch.equal(mn, want_min),
+          "segment aggregation differs from the scatter oracle")
+    check(bool(torch.isfinite(std).all()) and tuple(std.shape) == (
+        N, PNA_D_HIDDEN), "segment aggregation std not finite or misshapen")
+    log(f"phase 5: main path bucketize + segment_multi_agg == scatter "
+        f"oracle; segment_multi_agg launches {launches}")
+    torch.cuda.empty_cache()
+    return {"max_abs_err": max_err, "launches": launches,
+            "ms": timings["float32"]["ms"],
+            "plain_ms": timings["float32"]["plain_ms"],
+            "bound_ms": need / PEAK_BYTES * 1e3, "bound_by": "bytes",
+            "library_ms": None}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: attention
+# ---------------------------------------------------------------------------
+
+def sdpa(q, k, v, causal: bool):
+    """The library yardstick: one ``scaled_dot_product_attention`` call with
+    the kernel's semantics (lower-right causal diagonal, grouped KV)."""
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+    Sq, Sk = q.shape[2], k.shape[2]
+    if causal and Sq != Sk:
+        return F.scaled_dot_product_attention(
+            q, k, v, attn_mask=causal_lower_right(Sq, Sk), enable_gqa=True)
+    return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                          enable_gqa=True)
+
+
+def sdpa_kernels(fn) -> list:
+    """Names of the device kernels one call of ``fn`` runs (the SDPA
+    backend), from a profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA}
+    return sorted(n[:96] for n in names) or ["not traced"]
+
+
+def attn_bound_ms(q, k, causal: bool) -> tuple:
+    """The larger of 4·B·Hq·D·(visible pairs) over the dtype's peak and q,
+    k, v, o moved once over the memory rate."""
+    B, Hq, Sq, D = q.shape
+    Sk = k.shape[2]
+    pairs = (Sq * (Sk - Sq + 1) + Sq * (Sq - 1) // 2) if causal else Sq * Sk
+    flops = 4.0 * B * Hq * D * pairs
+    peak = PEAK_BF16_FLOPS if q.dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def attention_phase(ops, ref) -> dict:
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def qkv(B, Hq, Hkv, Sq, Sk, D, dtype, qk_scale=1.0):
+        q = torch.randn((B, Hq, Sq, D), generator=gen, device=dev) * qk_scale
+        k = torch.randn((B, Hkv, Sk, D), generator=gen, device=dev) * qk_scale
+        v = torch.randn((B, Hkv, Sk, D), generator=gen, device=dev)
+        return q.to(dtype), k.to(dtype), v.to(dtype)
+
+    def compare(q, k, v, causal, what):
+        got = ops.flash_attention(q, k, v, causal=causal)
+        want = ref.flash_attention_ref(q, k, v, causal=causal)
+        rtol, atol = ATTN_TOL[q.dtype]
+        g, w = got.to(torch.float32), want.to(torch.float32)
+        check(torch.allclose(g, w, rtol=rtol, atol=atol),
+              f"flash_attention != plain at {what}")
+        return got, float((g - w).abs().max())
+
+    max_err = 0.0
+    for shape in ATTN_UNIT_SHAPES:
+        for causal in (True, False):
+            q, k, v = qkv(*shape, torch.float32, 0.5)
+            max_err = max(max_err, compare(q, k, v, causal,
+                                           f"{shape} causal={causal}")[1])
+    log(f"phase 6: unit shapes within (rtol, atol) "
+        f"{ATTN_TOL[torch.float32]} in fp32 ({len(ATTN_UNIT_SHAPES) * 2} "
+        f"cases)")
+
+    models, records = {}, {}
+    for name, (B, Hq, Hkv, Sq, Sk, D) in ATTN_MODEL_SHAPES.items():
+        q, k, v = qkv(B, Hq, Hkv, Sq, Sk, D, torch.bfloat16)
+        out, err = compare(q, k, v, True, name)
+        max_err = max(max_err, err)
+        lib = sdpa(q, k, v, True)
+        check(torch.allclose(lib.to(torch.float32), out.to(torch.float32),
+                             rtol=3e-2, atol=3e-2),
+              f"scaled_dot_product_attention disagrees at {name}")
+        bound_ms, bound_by = attn_bound_ms(q, k, True)
+        rec = {"shape": [B, Hq, Hkv, Sq, Sk, D], "max_abs_err": err,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "ms": cuda_ms(lambda: ops.flash_attention(q, k, v), 5),
+               "plain_ms": cuda_ms(lambda: ref.flash_attention_ref(q, k, v),
+                                   3),
+               "library_ms": cuda_ms(lambda: sdpa(q, k, v, True), 10),
+               "library": sdpa_kernels(lambda: sdpa(q, k, v, True))}
+        records[name] = rec
+        models[name] = (q, k, v, out)
+        log(f"phase 6: {name} {json.dumps(rec)}")
+
+    reset_launches(ops)
+    for name, (q, k, v, out) in models.items():         # the main path
+        again = ops.flash_attention(q, k, v, causal=True)
+        check(bool(torch.isfinite(again.to(torch.float32)).all())
+              and again.dtype == q.dtype and torch.equal(again, out),
+              f"flash_attention main path at {name}: not finite or not "
+              f"the checked result")
+    launches = ops.flash_attention.launches
+    log(f"phase 6: main path over {len(models)} model shapes; "
+        f"flash_attention launches {launches}")
+    head = records["starcoder2-3b prefill"]
+    del models
+    torch.cuda.empty_cache()
+    return {"max_abs_err": max_err, "launches": launches,
+            **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")}, "shapes": records}
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -284,15 +541,18 @@ def main() -> int:
     seconds = {}
 
     t0 = time.perf_counter()
-    build.load("block_spmm")
+    build.build_all()
     seconds["build"] = time.perf_counter() - t0
-    log(f"phase 1: built block_spmm in {seconds['build']:.1f} s")
-    ptxas = build.build_log["block_spmm"]["ptxas"]
-    regs = [int(x) for x in re.findall(r"Used (\d+) registers", ptxas)]
-    spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", ptxas)]
-    if regs:
-        log(f"phase 1: ptxas over {len(regs)} instantiations: at most "
-            f"{max(regs)} registers, {max(spills)} bytes of spill stores")
+    for name in build.sources():
+        rec = build.build_log[name]
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers",
+                                           rec["ptxas"])]
+        spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores",
+                                             rec["ptxas"])]
+        log(f"phase 1: built {name} in {rec['seconds']:.1f} s; ptxas over "
+            f"{len(regs)} instantiations: at most {max(regs, default=0)} "
+            f"registers, {max(spills, default=0)} bytes of spill stores")
+    log(f"phase 1: all sources built in {seconds['build']:.1f} s")
     smi = nvidia_smi()
     log(f"nvidia-smi: {smi}")
 
@@ -300,7 +560,7 @@ def main() -> int:
     rec = spmm_checks(ops, ref)
     seconds["kernel_checks"] = time.perf_counter() - t0
 
-    ops.block_spmm.launches = 0
+    reset_launches(ops)
     t0 = time.perf_counter()
     snb = snb_phase()
     seconds["snb"] = time.perf_counter() - t0
@@ -315,8 +575,20 @@ def main() -> int:
         f"block_spmm launches {snb_launches}")
     log(f"phase 4: block_spmm launches {launches - snb_launches}; "
         f"max_memory_allocated {fin['max_memory_allocated']} B")
+
+    t0 = time.perf_counter()
+    agg = segment_phase(ops, ref)
+    seconds["segment_agg"] = time.perf_counter() - t0
+    check(agg["launches"] > 0,
+          "the main path never launched segment_multi_agg")
+    t0 = time.perf_counter()
+    attn = attention_phase(ops, ref)
+    seconds["attention"] = time.perf_counter() - t0
+    check(attn["launches"] > 0, "the main path never launched flash_attention")
     log("seconds " + json.dumps(seconds))
 
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     kernels = [{
         "name": "block_spmm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/block_spmm.cu",
@@ -325,6 +597,16 @@ def main() -> int:
         "ms": rec["ms"], "plain_ms": rec["plain_ms"],
         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
         "library_ms": rec["library_ms"], "checked": True,
+    }, {
+        "name": "segment_multi_agg", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/segment_agg.cu",
+        "replaces": "src/repro/kernels/segment_agg.py:44",
+        **{k: agg[k] for k in keys}, "checked": True,
+    }, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:73",
+        **{k: attn[k] for k in keys}, "checked": True,
     }]
     log(f"nvidia-smi: {smi}")
     log(json.dumps({"kernels": kernels}))

@@ -14,8 +14,9 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -60,6 +61,19 @@ def build(name: str) -> Path:
     build_log[name] = {"seconds": time.perf_counter() - t0,
                        "ptxas": proc.stderr}
     return out
+
+
+def sources() -> List[str]:
+    """Names of every kernel source, ``csrc/<name>.cu``."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def build_all() -> Dict[str, Path]:
+    """Build every kernel source at once: one ``nvcc`` per source, all
+    started together.  Raises the first build failure."""
+    names = sources()
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -3,14 +3,16 @@
 A wrapper takes the plain version (``ref.py``) only when its tensors lie on
 the CPU.  For CUDA tensors it launches the kernel or raises — there is no
 fallback.  Each wrapper counts its launches in an integer attribute
-(``block_spmm.launches``) so a run can show that the main path went
-through the kernel.
+(``block_spmm.launches``, ``segment_multi_agg.launches``,
+``flash_attention.launches``) so a run can show that the main path went
+through the kernel.  ``bucketize_messages`` is the host-free layout step
+that feeds ``segment_multi_agg``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -21,6 +23,10 @@ _DT = {torch.int32: 0, torch.uint8: 1, torch.float32: 2}
 _F_TYPES = (torch.int32, torch.uint8, torch.bool, torch.float32)
 _A_TYPES = (torch.int32, torch.float32)
 _OUT_TYPES = (torch.float32, torch.int32, torch.uint8)
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 @functools.lru_cache(maxsize=None)
@@ -82,7 +88,7 @@ def block_spmm(F: torch.Tensor, A: torch.Tensor,
         F.data_ptr(), _DT[F.dtype], A.data_ptr(), _DT[A.dtype],
         mask.data_ptr() if mask is not None else None, out.data_ptr(),
         _DT[out_dtype], S, K, N, 0 if counting else 1,
-        torch.cuda.current_stream(dev).cuda_stream)
+        _stream(dev))
     if rc != 0:
         raise RuntimeError(f"block_spmm launch failed: CUDA error {rc}")
     block_spmm.launches += 1
@@ -90,3 +96,171 @@ def block_spmm(F: torch.Tensor, A: torch.Tensor,
 
 
 block_spmm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# segment_multi_agg
+# ---------------------------------------------------------------------------
+
+# dtype codes of csrc/segment_agg.cu and csrc/flash_attention.cu
+_FLOAT_DT = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.lru_cache(maxsize=None)
+def _agg_fn():
+    from repro_torch.kernels.build import load
+    fn = load("segment_agg").segment_agg_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   *[ctypes.c_void_p] * 4, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def bucketize_messages(dst, msg: torch.Tensor, num_nodes: int,
+                       width: Optional[int] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ELL bucketing of per-edge messages by destination, on ``msg``'s device.
+
+    dst: [E] destination of each edge, msg: [E, D].  Slot ``k`` of node
+    ``d`` holds the ``k``-th edge (in edge order) whose destination is
+    ``d``; edges past the width are dropped.  The width is
+    ``int(width or max(max_in_degree, 1))``.  Returns (bucketed [N, W, D]
+    in ``msg.dtype``, valid [N, W] bool): the layout ``segment_multi_agg``
+    reads.  A stable sort of ``dst`` and a rank within each segment replace
+    the reference's per-edge loop; one scatter writes the slots.
+    """
+    msg = torch.as_tensor(msg)
+    dev = msg.device
+    dst = torch.as_tensor(dst, device=dev).to(torch.int64)
+    if dst.dim() != 1 or msg.dim() != 2 or msg.shape[0] != dst.shape[0]:
+        raise ValueError(f"bucketize_messages takes dst [E] and msg [E, D], "
+                         f"got {tuple(dst.shape)} and {tuple(msg.shape)}")
+    deg = torch.bincount(dst, minlength=num_nodes)
+    if deg.shape[0] != num_nodes:
+        raise ValueError(f"a destination is not below num_nodes={num_nodes}")
+    W = int(width or max(int(deg.max()) if num_nodes else 0, 1))
+    order = torch.argsort(dst, stable=True)
+    sdst = dst[order]
+    start = torch.cumsum(deg, 0) - deg
+    rank = torch.arange(dst.shape[0], device=dev) - start[sdst]
+    keep = rank < W
+    rows, slots = sdst[keep], rank[keep]
+    out = torch.zeros((num_nodes, W, msg.shape[1]), dtype=msg.dtype,
+                      device=dev)
+    out[rows, slots] = msg[order[keep]]
+    valid = torch.zeros((num_nodes, W), dtype=torch.bool, device=dev)
+    valid[rows, slots] = True
+    return out, valid
+
+
+def segment_multi_agg(msg: torch.Tensor, valid: torch.Tensor, *,
+                      eps: float = 1e-5) -> Tuple[torch.Tensor, ...]:
+    """Fused (mean, max, min, std) over bucketed neighbour messages.
+
+    msg: [N, W, D] float32 or bfloat16, valid: [N, W] bool or uint8.
+    Returns four float32 [N, D] tensors; ``std = sqrt(max(E[x²] - mean²,
+    0) + eps)`` and rows with no valid slot give 0.  Ragged N and D need
+    no padding.
+    """
+    if msg.dim() != 3 or valid.dim() != 2 or \
+            tuple(valid.shape) != tuple(msg.shape[:2]):
+        raise ValueError(f"segment_multi_agg takes msg [N, W, D] and valid "
+                         f"[N, W], got {tuple(msg.shape)} and "
+                         f"{tuple(valid.shape)}")
+    if msg.dtype not in _FLOAT_DT or valid.dtype not in (torch.bool,
+                                                         torch.uint8):
+        raise TypeError(f"segment_multi_agg takes float32/bfloat16 msg and "
+                        f"bool/uint8 valid, got {msg.dtype}, {valid.dtype}")
+    if msg.device != valid.device:
+        raise ValueError(f"segment_multi_agg operands on several devices: "
+                         f"{msg.device}, {valid.device}")
+    dev = msg.device
+    if dev.type == "cpu":
+        return ref.segment_multi_agg_ref(msg.to(torch.float32), valid, eps)
+    if dev.type != "cuda":
+        raise ValueError(f"segment_multi_agg runs on cpu or cuda, "
+                         f"not {dev.type}")
+    if not (msg.is_contiguous() and valid.is_contiguous()):
+        raise ValueError("segment_multi_agg needs contiguous msg and valid")
+    N, W, D = msg.shape
+    outs = [torch.empty((N, D), dtype=torch.float32, device=dev)
+            for _ in range(4)]
+    rc = _agg_fn()(
+        msg.data_ptr(), _FLOAT_DT[msg.dtype], valid.data_ptr(),
+        *[o.data_ptr() for o in outs], N, W, D, eps, _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"segment_multi_agg launch failed: CUDA error {rc}")
+    segment_multi_agg.launches += 1
+    return tuple(outs)
+
+
+segment_multi_agg.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# flash_attention
+# ---------------------------------------------------------------------------
+
+HEAD_DIMS = (64, 128, 256)
+
+
+@functools.lru_cache(maxsize=None)
+def _flash_fn():
+    from repro_torch.kernels.build import load
+    fn = load("flash_attention").flash_attention_launch
+    fn.argtypes = [*[ctypes.c_void_p] * 4, ctypes.c_int, *[ctypes.c_int] * 6,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """Fused attention forward with grouped KV heads.
+
+    q: [B, Hq, Sq, D], k and v: [B, Hkv, Sk, D] with Hq a multiple of Hkv
+    (query head h reads KV head h // (Hq/Hkv), no repeat), Sk >= Sq, D in
+    64/128/256, all float32 or all bfloat16.  Scale 1/sqrt(D); the causal
+    diagonal is shifted by Sk - Sq (chunked decode).  Returns [B, Hq, Sq, D]
+    in ``q.dtype``.
+    """
+    if q.dim() != 4 or k.dim() != 4 or tuple(k.shape) != tuple(v.shape):
+        raise ValueError(f"flash_attention takes q [B,Hq,Sq,D] and k, v "
+                         f"[B,Hkv,Sk,D], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Sk, _ = k.shape
+    if k.shape[0] != B or k.shape[3] != D or Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"flash_attention: k {tuple(k.shape)} does not "
+                         f"match q {tuple(q.shape)}")
+    if Sk < Sq:
+        raise ValueError(f"flash_attention needs Sk >= Sq, got Sk={Sk} "
+                         f"Sq={Sq}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention takes head_dim in {HEAD_DIMS}, "
+                         f"got {D}")
+    if q.dtype not in _FLOAT_DT or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention takes float32 or bfloat16 q, k, v "
+                        f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if len({q.device, k.device, v.device}) != 1:
+        raise ValueError("flash_attention operands on several devices")
+    dev = q.device
+    if dev.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention runs on cpu or cuda, "
+                         f"not {dev.type}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention needs contiguous q, k and v")
+    out = torch.empty_like(q)
+    rc = _flash_fn()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        _FLOAT_DT[q.dtype], B, Hq, Hkv, Sq, Sk, D, int(causal), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -6,7 +6,7 @@ kernels' oracles and nothing on the main path calls them.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -36,3 +36,93 @@ def block_spmm_ref(F: torch.Tensor, A: torch.Tensor,
     if col_mask is not None:
         out = out * col_mask.to(torch.float32)[None, :]
     return out
+
+
+def segment_multi_agg_ref(msg: torch.Tensor, valid: torch.Tensor,
+                          eps: float = 1e-5) -> Tuple[torch.Tensor, ...]:
+    """PNA multi-aggregator over bucketed neighbours, in ``msg.dtype``.
+
+    msg: [N, W, D] bucketed neighbour messages (padded), valid: [N, W]
+    slot validity.  Returns (mean, max, min, std), each [N, D], with
+    ``std = sqrt(max(E[x²] - mean², 0) + eps)``; empty rows give zeros.
+    """
+    v = valid[:, :, None].to(msg.dtype)
+    cnt = valid.to(msg.dtype).sum(dim=1)[:, None]
+    safe = torch.clamp_min(cnt, 1.0)
+    mean = (msg * v).sum(dim=1) / safe
+    mx = torch.where(v > 0, msg, -3.4e38).amax(dim=1)
+    mn = torch.where(v > 0, msg, 3.4e38).amin(dim=1)
+    nonempty = cnt > 0
+    mx = torch.where(nonempty, mx, 0.0)
+    mn = torch.where(nonempty, mn, 0.0)
+    meansq = (msg * msg * v).sum(dim=1) / safe
+    # meansq - mean² with the exact product and one rounding, as the
+    # reference's compiled expression (a fused multiply-add) and the kernel
+    # take it: where the variance is near 0, that residual decides the std
+    var = (meansq.double() - mean.double() * mean.double()).to(msg.dtype)
+    std = torch.sqrt(torch.clamp_min(var, 0.0) + eps)
+    std = torch.where(nonempty, std, 0.0)
+    return mean, mx, mn, std
+
+
+def _causal_mask(sq: int, sk: int, device) -> torch.Tensor:
+    """Decode-friendly causal mask: query i attends keys <= i + (sk - sq)."""
+    qi = torch.arange(sq, device=device)[:, None]
+    kj = torch.arange(sk, device=device)[None, :]
+    return kj <= qi + (sk - sq)
+
+
+def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool = True, scale: Optional[float] = None
+            ) -> torch.Tensor:
+    """Attention oracle.  q: [B,H,Sq,D], k/v: [B,H,Sk,D] -> [B,H,Sq,D].
+
+    Like the reference oracle it casts the probabilities to ``v.dtype``
+    before the product with v; ``flash_attention_ref`` does not."""
+    d = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k).to(torch.float32) * scale
+    if causal:
+        mask = _causal_mask(q.shape[-2], k.shape[-2], q.device)
+        logits = torch.where(mask, logits, -1e30)
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         kv_len: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Single-token decode oracle.  q: [B,H,D], k/v: [B,H,S,D].
+
+    ``kv_len`` masks the valid prefix of the cache (per batch)."""
+    d = q.shape[-1]
+    logits = torch.einsum("bhd,bhsd->bhs", q, k).to(torch.float32) / (d ** 0.5)
+    if kv_len is not None:
+        s = k.shape[-2]
+        mask = (torch.arange(s, device=q.device)[None, None, :]
+                < kv_len[:, None, None])
+        logits = torch.where(mask, logits, -1e30)
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhs,bhsd->bhd", p.to(v.dtype), v)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """What the ``flash_attention`` kernel computes, without tiling.
+
+    q: [B,Hq,Sq,D], k/v: [B,Hkv,Sk,D] with Hq a multiple of Hkv (query head
+    h reads KV head h // (Hq/Hkv)) and Sk >= Sq.  Scores, softmax and the
+    product with v run in fp32 (TF32 off), scale 1/sqrt(D), the causal
+    diagonal shifted by Sk - Sq; the output is cast to ``q.dtype``.
+    """
+    hq, hkv, d = q.shape[1], k.shape[1], q.shape[-1]
+    qf, kf, vf = (x.to(torch.float32) for x in (q, k, v))
+    if hkv != hq:
+        kf = kf.repeat_interleave(hq // hkv, dim=1)
+        vf = vf.repeat_interleave(hq // hkv, dim=1)
+    logits = matmul_f32(qf, kf.transpose(-1, -2)) * (1.0 / d ** 0.5)
+    if causal:
+        mask = _causal_mask(q.shape[-2], k.shape[-2], q.device)
+        logits = torch.where(mask, logits, -1e30)
+    p = torch.softmax(logits, dim=-1)
+    return matmul_f32(p, vf).to(q.dtype)

@@ -40,7 +40,14 @@ def test_port_has_the_slice_modules():
                  "core.executor", "core.plan", "core.maintenance",
                  "core.views", "data.synthetic", "configs.mv4pg", "interop"):
         assert f"repro_torch.{name}" in mods, name
-    assert (PORT / "kernels" / "csrc" / "block_spmm.cu").is_file()
+    for src in ("block_spmm", "segment_agg", "flash_attention"):
+        assert (PORT / "kernels" / "csrc" / f"{src}.cu").is_file(), src
+    from repro_torch.kernels import build, ops
+    assert build.sources() == ["block_spmm", "flash_attention",
+                               "segment_agg"]
+    for name in ("block_spmm", "segment_multi_agg", "flash_attention"):
+        assert getattr(ops, name).launches >= 0, name
+    assert callable(ops.bucketize_messages)
 
 
 @pytest.mark.parametrize("path", port_files(),
@@ -124,3 +131,50 @@ def test_chip_smoke_phases_rehearse_on_cpu():
     assert smoke.snb_phase(0.02, device="cpu")["nodes"] > 0
     assert smoke.finbench_phase(0.02, device="cpu") == {
         "max_memory_allocated": None}
+
+
+def test_chip_smoke_kernel_phases_rehearse_on_cpu():
+    """Phases 5-6 run at their card sizes only; their helpers run here: the
+    scatter oracle against bucketize + segment_multi_agg on a tiny SNB
+    graph, the SDPA yardstick (lower-right diagonal, grouped KV) against
+    the plain attention at a decode shape within the bf16 tolerance, that
+    tolerance refusing a diagonal shifted by one key, and the attention
+    bound counting the visible pairs."""
+    import importlib.util
+
+    from repro_torch.data.synthetic import snb_like
+    from repro_torch.kernels import ops, ref
+    spec = importlib.util.spec_from_file_location("chip_smoke", SMOKE)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+
+    g, _, _ = snb_like(seed=0, n_person=40, n_post=30, n_comment=240,
+                       device="cpu")
+    N = g.num_nodes()
+    dst = g.edge_dst[g.edge_alive].to(torch.int64)
+    gen = torch.Generator().manual_seed(0)
+    msg = torch.randn((dst.shape[0], smoke.PNA_D_HIDDEN), generator=gen)
+    mean, mx, mn, _ = ops.segment_multi_agg(
+        *ops.bucketize_messages(dst, msg, N))
+    want_mean, want_max, want_min = smoke.scatter_aggregates(dst, msg, N)
+    torch.testing.assert_close(mean, want_mean, rtol=1e-5, atol=1e-6)
+    assert torch.equal(mx, want_max) and torch.equal(mn, want_min)
+
+    B, Hq, Hkv, Sq, Sk, D = 1, 4, 1, 128, 4096, 128
+    q, k, v = (torch.randn(s, generator=gen).to(torch.bfloat16)
+               for s in ((B, Hq, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D)))
+    rtol, atol = smoke.ATTN_TOL[torch.bfloat16]
+    want = ref.flash_attention_ref(q, k, v).to(torch.float32)
+    lib = smoke.sdpa(*(x.to(torch.float64) for x in (q, k, v)), True)
+    assert torch.allclose(lib.to(torch.bfloat16).to(torch.float32), want,
+                          rtol=rtol, atol=atol)
+    shifted = ref.flash_attention_ref(q, k[:, :, :-1], v[:, :, :-1])
+    assert not torch.allclose(shifted.to(torch.float32), want, rtol=rtol,
+                              atol=atol)
+
+    q, k = torch.zeros((1, 1, 4, 8)), torch.zeros((1, 1, 6, 8))
+    pairs = int(ref._causal_mask(4, 6, "cpu").sum())
+    bound_ms, bound_by = smoke.attn_bound_ms(q, k, True)
+    assert pairs == 18 and bound_by == "bytes"
+    assert bound_ms == max(4.0 * 8 * pairs / smoke.PEAK_FP32_FLOPS,
+                           (2 * 32 + 2 * 48) * 4 / smoke.PEAK_BYTES) * 1e3

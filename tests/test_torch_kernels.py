@@ -6,20 +6,29 @@ bit-exact on integer-valued inputs, within the reference's own rtol on
 random floats.  Tests marked ``cuda`` hold the CUDA kernel against the plain
 version on the card and skip on a host without one.
 """
-import jax.numpy as jnp
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
 
-from repro.kernels import ops as r_ops
-from repro.kernels import ref as r_ref
 from repro_torch.kernels import build as p_build
 from repro_torch.kernels import ops as p_ops
 from repro_torch.kernels import ref as p_ref
 
 SHAPES = [(8, 16, 12), (128, 128, 128), (100, 200, 150), (256, 384, 128)]
-DTYPES = {"float32": (jnp.float32, torch.float32),
-          "int32": (jnp.int32, torch.int32)}
+DTYPES = {"float32": torch.float32, "int32": torch.int32}
+
+
+@pytest.fixture(scope="module")
+def R():
+    """The JAX reference: its kernel wrappers, its oracles and ``jnp``.  The
+    GPU machine has no JAX, so there only the ``cuda`` tests run."""
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels import ops, ref
+    return SimpleNamespace(jnp=jnp, ops=ops, ref=ref,
+                           dtype={torch.float32: jnp.float32,
+                                  torch.int32: jnp.int32})
 
 
 def _inputs(shape, seed):
@@ -35,19 +44,20 @@ def _inputs(shape, seed):
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("semiring", ["count", "bool"])
 @pytest.mark.parametrize("shape", SHAPES)
-def test_block_spmm_matches_reference(shape, semiring, dtype, masked):
+def test_block_spmm_matches_reference(R, shape, semiring, dtype, masked):
     F, A, mask = _inputs(shape, 2 * SHAPES.index(shape) + (semiring == "bool"))
-    jdt, tdt = DTYPES[dtype]
+    tdt = DTYPES[dtype]
+    jdt = R.dtype[tdt]
     counting = semiring == "count"
     m = mask if masked else None
     got = p_ops.block_spmm(
         torch.from_numpy(F).to(tdt), torch.from_numpy(A).to(tdt),
         None if m is None else torch.from_numpy(m), counting=counting)
     assert got.dtype == torch.float32 and tuple(got.shape) == shape[::2]
-    jm = None if m is None else jnp.asarray(m)
-    kernel = r_ops.block_spmm(jnp.asarray(F, jdt), jnp.asarray(A, jdt), jm,
+    jm = None if m is None else R.jnp.asarray(m)
+    kernel = R.ops.block_spmm(R.jnp.asarray(F, jdt), R.jnp.asarray(A, jdt), jm,
                               counting=counting)
-    oracle = r_ref.block_spmm_ref(jnp.asarray(F, jdt), jnp.asarray(A, jdt),
+    oracle = R.ref.block_spmm_ref(R.jnp.asarray(F, jdt), R.jnp.asarray(A, jdt),
                                   jm, semiring=semiring)
     # integer-valued inputs: every partial sum is exact in fp32
     np.testing.assert_array_equal(got.numpy(), np.asarray(kernel))
@@ -55,14 +65,14 @@ def test_block_spmm_matches_reference(shape, semiring, dtype, masked):
 
 
 @pytest.mark.parametrize("out_dtype", [torch.int32, torch.uint8])
-def test_block_spmm_integer_outputs(out_dtype):
+def test_block_spmm_integer_outputs(R, out_dtype):
     F, A, mask = _inputs((100, 200, 150), 5)
     counting = out_dtype == torch.int32
     got = p_ops.block_spmm(torch.from_numpy(F).to(torch.int32),
                            torch.from_numpy(A), torch.from_numpy(mask),
                            counting=counting, out_dtype=out_dtype)
-    want = r_ref.block_spmm_ref(jnp.asarray(F), jnp.asarray(A),
-                                jnp.asarray(mask),
+    want = R.ref.block_spmm_ref(R.jnp.asarray(F), R.jnp.asarray(A),
+                                R.jnp.asarray(mask),
                                 semiring="count" if counting else "bool")
     assert got.dtype == out_dtype
     np.testing.assert_array_equal(got.numpy(),
@@ -71,7 +81,7 @@ def test_block_spmm_integer_outputs(out_dtype):
 
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("shape", [(64, 64, 64), (100, 200, 150)])
-def test_block_spmm_random_floats(shape, masked):
+def test_block_spmm_random_floats(R, shape, masked):
     S, K, N = shape
     rng = np.random.default_rng(0)
     F = rng.random((S, K)).astype(np.float32)
@@ -79,8 +89,8 @@ def test_block_spmm_random_floats(shape, masked):
     mask = rng.integers(0, 2, (N,)).astype(np.float32) if masked else None
     got = p_ops.block_spmm(torch.from_numpy(F), torch.from_numpy(A),
                            None if mask is None else torch.from_numpy(mask))
-    want = r_ops.block_spmm(jnp.asarray(F), jnp.asarray(A),
-                            None if mask is None else jnp.asarray(mask))
+    want = R.ops.block_spmm(R.jnp.asarray(F), R.jnp.asarray(A),
+                            None if mask is None else R.jnp.asarray(mask))
     # sums of random floats in another order: the reference's own rtol
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                rtol=1e-6 if masked else 1e-5)
