@@ -9,28 +9,33 @@ Phases:
      each source's registers and spills, and print the card's name and
      power limit;
   2. hold ``block_spmm`` against its plain PyTorch version on the card, at
-     unit shapes and at the FinBench workload shape, and time kernel, plain
-     version and a ``torch.matmul`` fp32 yardstick;
+     unit shapes (small integers, values above 255 in every K slab or in
+     some, counts near 2^24) and at the FinBench workload shape, and time
+     kernel, plain version and a ``torch.matmul`` fp32 yardstick;
   3. the SNB main path: ``snb_like(seed=0)`` through ``GraphSession`` —
      reads without views, three fused view builds, reads with views (equal
      rows), CE/DE/DV writes with recover, ``check_consistency``;
   4. FinBench through the kernel: a session with dense hops on
      ``block_spmm`` against a segment-hop session, reads bit-exact in reach
-     rows and DBHit/Rows, writes keeping every view consistent;
+     rows and DBHit/Rows, writes keeping every view consistent; the share
+     of u8 K slabs that took the CUDA cores in phases 3-4 is read after;
   5. segment aggregation: ``segment_multi_agg`` against its plain version
      at unit shapes and on messages bucketed from the SNB graph, timed; then
      its main path, ``bucketize_messages`` + ``segment_multi_agg``, checked
      against a scatter formulation of the same aggregates;
   6. attention: ``flash_attention`` against its plain version at the
-     reference's test shapes (fp32) and at starcoder2-3b and gemma-2b
-     shapes (bf16), timed beside ``scaled_dot_product_attention``; then its
-     main path, the three model shapes once more.
+     reference's test shapes (fp32), at decode shapes that split over keys
+     (bf16 and fp32) and at starcoder2-3b and gemma-2b shapes (bf16), timed
+     beside ``scaled_dot_product_attention``; then its main path, the
+     three model shapes once more.
 
 Each kernel's launch count is zeroed just before its main path and read
 just after it: phases 3-4 for ``block_spmm``, the ends of phases 5 and 6
-for the others (comparison launches do not count).  Every failed check
-raises, so the script exits non-zero and prints no result line.  It needs
-one CUDA device; without one it exits with code 2.
+for the others (comparison launches do not count).  ``block_spmm`` and
+``flash_attention`` also count launches by route: ``tc`` (tensor cores)
+and ``fp32`` (CUDA cores).  Every failed check raises, so the script exits
+non-zero and prints no result line.  It needs one CUDA device; without one
+it exits with code 2.
 """
 from __future__ import annotations
 
@@ -49,6 +54,7 @@ ROOT = Path(__file__).resolve().parent
 # card peaks (NVIDIA H100 SXM data sheet, dense, at the 700 W limit)
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 
 UNIT_SHAPES = [(8, 16, 12), (128, 128, 128), (100, 200, 150), (256, 384, 128)]
@@ -68,6 +74,10 @@ PNA_D_HIDDEN = 75
 ATTN_UNIT_SHAPES = [(1, 2, 2, 128, 128, 64), (2, 4, 4, 256, 256, 128),
                     (1, 1, 1, 384, 384, 128), (1, 4, 2, 100, 173, 64),
                     (1, 6, 2, 128, 4096, 128), (1, 4, 1, 64, 300, 256)]
+# decode shapes whose few query blocks make the bf16 kernel split over
+# keys, with a shorter last chunk (11 chunks of 6, 6, ..., 4 kv tiles; 32
+# chunks of 3, ..., 1 tiles of 32 keys, the last one ragged)
+ATTN_SPLIT_SHAPES = [(1, 24, 2, 1, 4096, 128), (1, 8, 1, 37, 3001, 256)]
 ATTN_MODEL_SHAPES = {
     "starcoder2-3b prefill": (1, 24, 2, 4096, 4096, 128),
     "starcoder2-3b chunked decode": (1, 24, 2, 128, 4096, 128),
@@ -106,6 +116,9 @@ def cuda_ms(fn, iters: int) -> float:
 def reset_launches(ops) -> None:
     for fn in (ops.block_spmm, ops.segment_multi_agg, ops.flash_attention):
         fn.launches = 0
+    for fn in (ops.block_spmm, ops.flash_attention):
+        fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
+    ops.block_spmm.slabs = 0
 
 
 def nvidia_smi() -> str:
@@ -118,6 +131,44 @@ def nvidia_smi() -> str:
 # ---------------------------------------------------------------------------
 # phase 2: block_spmm against its plain version
 # ---------------------------------------------------------------------------
+
+def spmm_bound_ms(S: int, K: int, N: int) -> tuple:
+    """The least time of an int32 count hop: the larger of 2·S·K·N over
+    the int8 tensor-core peak (integer operands multiply exactly there)
+    and int32 F, A and out moved once over the memory rate."""
+    t_ops = 2.0 * S * K * N / PEAK_INT8_OPS
+    t_bytes = 4.0 * (S * K + K * N + S * N) / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def wide_cases(dev) -> dict:
+    """Integer operands outside the u8 range, each with the number of
+    (block, K slab) pairs that must take the CUDA cores: values above 255
+    in every slab, in one slab only, and walk counts near 2^24 (below it,
+    where the plain fp32 version is exact).  Shapes (S, K, N) = (130, 200,
+    150): one block of two row tiles per column block, two column blocks,
+    four K slabs."""
+    g = np.random.default_rng(1)
+    S, K, N = 130, 200, 150
+    F = g.integers(0, 3, (S, K))
+    A = (g.random((K, N)) < 0.3).astype(np.int64)
+    above = (F * g.integers(100, 1000, (S, K)), A * g.integers(1, 300, (K, N)))
+    Fm, Am = F.copy(), A.copy()
+    Fm[:, 64:128] *= 300
+    Am[64:128] *= 257
+    Fn, An = np.zeros((S, K), np.int64), np.zeros((K, N), np.int64)
+    Fn[:, 7], An[7] = 16000, 1040          # 16,640,000 < 2^24 = 16,777,216
+    Fn[:, 100:200], An[100:200] = 2, 3
+    cases = {"above 255": (*above, 8), "mixed slabs": (Fm, Am, 2),
+             "near 2^24": (Fn, An, 2)}
+    out = {}
+    for name, (f, a, n_slow) in cases.items():
+        check(int((f @ a).max()) < 2 ** 24, f"{name}: a sum reaches 2^24")
+        out[name] = (torch.from_numpy(f.astype(np.int32)).to(dev),
+                     torch.from_numpy(a.astype(np.int32)).to(dev), n_slow)
+    return out
+
 
 def spmm_checks(ops, ref) -> dict:
     """Exact kernel == plain comparisons (integer-valued inputs) plus the
@@ -145,6 +196,24 @@ def spmm_checks(ops, ref) -> dict:
                           f"block_spmm != plain at {(S, K, N)} "
                           f"counting={counting} F={f_dtype} mask={masked}")
     log(f"phase 2: unit shapes exact ({len(UNIT_SHAPES) * 12} cases)")
+    slow = ops.spmm_slow_slabs(dev)
+    wide = wide_cases(dev)
+    for case, (F, A, want_slow) in wide.items():
+        for m in (None, torch.from_numpy(rng.integers(0, 2, A.shape[1])).to(
+                dev)):
+            slow.zero_()
+            got = ops.block_spmm(F, A, m, counting=True,
+                                 out_dtype=torch.int32)
+            want = ref.block_spmm_ref(F, A, m)
+            torch.cuda.synchronize()
+            check(torch.equal(got.to(torch.float32), want),
+                  f"block_spmm != plain at {case} mask={m is not None}")
+            check(int(slow) == want_slow,
+                  f"block_spmm {case}: {int(slow)} slabs on the CUDA cores, "
+                  f"expected {want_slow}")
+    log(f"phase 2: values above 255 exact, their slabs alone on the CUDA "
+        f"cores ({len(wide) * 2} cases); routes "
+        + json.dumps(ops.block_spmm.launches_by_route))
 
     S, K, N = WORKLOAD_SHAPE
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -177,12 +246,8 @@ def spmm_checks(ops, ref) -> dict:
     log(f"phase 2: workload shape {WORKLOAD_SHAPE} exact in count/bool x "
         f"mask/no mask; ms: " + json.dumps(timings)
         + f"; torch.matmul fp32 {library_ms:.3f} ms")
-    flops = 2.0 * S * K * N
-    nbytes = F.numel() * 4 + A.numel() * 4 + S * N * 4   # count, no mask
-    bound_by = "operations" if flops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES \
-        else "bytes"
-    bound_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES) * 1e3
-    del A, F, Ff, Af
+    bound_ms, bound_by = spmm_bound_ms(S, K, N)
+    del A, F, Ff, Af, wide
     torch.cuda.empty_cache()
     return {"max_abs_err": max_err, "ms": timings["count"]["ms"],
             "plain_ms": timings["count"]["plain_ms"], "bound_ms": bound_ms,
@@ -483,6 +548,24 @@ def attention_phase(ops, ref) -> dict:
     log(f"phase 6: unit shapes within (rtol, atol) "
         f"{ATTN_TOL[torch.float32]} in fp32 ({len(ATTN_UNIT_SHAPES) * 2} "
         f"cases)")
+    for shape in ATTN_SPLIT_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            for causal in (True, False):
+                q, k, v = qkv(*shape, dtype, 0.5)
+                route = "tc" if dtype == torch.bfloat16 else "fp32"
+                before = ops.flash_attention.launches_by_route[route]
+                max_err = max(max_err, compare(
+                    q, k, v, causal, f"{shape} {dtype} causal={causal}")[1])
+                check(ops.flash_attention.launches_by_route[route]
+                      == before + 1, f"flash_attention {dtype} left the "
+                                     f"{route} route")
+    splits = {str(s): ops.attention_splits(
+        s[0], s[1], s[3], s[4], s[5],
+        torch.cuda.get_device_properties(0).multi_processor_count)
+        for s in ATTN_SPLIT_SHAPES}
+    log(f"phase 6: split-KV shapes within tolerance in bf16 and fp32 "
+        f"({len(ATTN_SPLIT_SHAPES) * 4} cases); (n_split, kv tiles per "
+        f"chunk) {json.dumps(splits)}")
 
     models, records = {}, {}
     for name, (B, Hq, Hkv, Sq, Sk, D) in ATTN_MODEL_SHAPES.items():
@@ -513,12 +596,16 @@ def attention_phase(ops, ref) -> dict:
               f"flash_attention main path at {name}: not finite or not "
               f"the checked result")
     launches = ops.flash_attention.launches
+    routes = dict(ops.flash_attention.launches_by_route)
+    check(routes["tc"] == launches,
+          f"bf16 flash_attention left the tensor-core route: {routes}")
     log(f"phase 6: main path over {len(models)} model shapes; "
-        f"flash_attention launches {launches}")
+        f"flash_attention launches {launches}, routes {json.dumps(routes)}")
     head = records["starcoder2-3b prefill"]
     del models
     torch.cuda.empty_cache()
     return {"max_abs_err": max_err, "launches": launches,
+            "launches_by_route": routes,
             **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms")}, "shapes": records}
 
@@ -561,6 +648,7 @@ def main() -> int:
     seconds["kernel_checks"] = time.perf_counter() - t0
 
     reset_launches(ops)
+    ops.spmm_slow_slabs("cuda").zero_()
     t0 = time.perf_counter()
     snb = snb_phase()
     seconds["snb"] = time.perf_counter() - t0
@@ -570,11 +658,19 @@ def main() -> int:
     fin = finbench_phase()
     seconds["finbench"] = time.perf_counter() - t0
     launches = ops.block_spmm.launches
+    spmm_routes = dict(ops.block_spmm.launches_by_route)
+    slow_slabs = int(ops.spmm_slow_slabs("cuda"))
     check(launches > 0, "the main path never launched block_spmm")
+    check(spmm_routes["tc"] == launches,
+          f"the main path's block_spmm left the u8 route: {spmm_routes}")
     log(f"phase 3: SNB {json.dumps(snb)}; "
         f"block_spmm launches {snb_launches}")
     log(f"phase 4: block_spmm launches {launches - snb_launches}; "
         f"max_memory_allocated {fin['max_memory_allocated']} B")
+    log(f"phases 3-4: block_spmm routes {json.dumps(spmm_routes)}; "
+        f"u8 slabs on the CUDA cores {slow_slabs} of "
+        f"{ops.block_spmm.slabs}; bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']})")
 
     t0 = time.perf_counter()
     agg = segment_phase(ops, ref)
@@ -597,6 +693,7 @@ def main() -> int:
         "ms": rec["ms"], "plain_ms": rec["plain_ms"],
         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
         "library_ms": rec["library_ms"], "checked": True,
+        "launches_by_route": spmm_routes, "slow_slabs": slow_slabs,
     }, {
         "name": "segment_multi_agg", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/segment_agg.cu",
@@ -607,6 +704,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:73",
         **{k: attn[k] for k in keys}, "checked": True,
+        "launches_by_route": attn["launches_by_route"],
     }]
     log(f"nvidia-smi: {smi}")
     log(json.dumps({"kernels": kernels}))

@@ -3,39 +3,63 @@
 // for q[B, Hq, Sq, D] and k, v[B, Hkv, Sk, D], Hq a multiple of Hkv.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::flash_attention
-// (body _flash_kernel).  Its semantics are kept: the running max m, the
-// running denominator l and the accumulator are fp32; the scores are scaled
-// after the dot product; a causally masked score is -1e30, with the
-// diagonal shifted by Sk - Sq so that one kernel serves prefill and chunked
-// decode; kv tiles wholly above that diagonal are skipped; a row whose l is
-// 0 divides by 1; the output is written in the input type.  Query head h
-// reads KV head h / (Hq / Hkv) by index (the TPU wrapper repeated K and V
-// in memory first).  Keys past Sk and query rows past Sq are masked here,
-// so neither length has to be a multiple of the tile.
-//
-// Types.  q, k and v are read as fp32 or bf16 and cast to fp32 as they are
-// staged in shared memory; every product and sum is IEEE fp32 on the CUDA
-// cores (expf, no fast math), so fp32 inputs keep fp32 accuracy.
+// (body _flash_kernel).  Its semantics are kept by both routes below: the
+// running max m, the running denominator l and the accumulator are fp32;
+// the scores are scaled after the dot product; a causally masked score is
+// -1e30, with the diagonal shifted by Sk - Sq so that one kernel serves
+// prefill and chunked decode; kv tiles wholly above that diagonal are
+// skipped; a row whose l is 0 divides by 1; the output is written in the
+// input type.  Query head h reads KV head h / (Hq / Hkv) by index (the TPU
+// wrapper repeated K and V in memory first).  Keys past Sk and query rows
+// past Sq are masked here, so neither length has to be a multiple of a tile.
 //
 // Bound.  4 * D FLOP per visible (query, key) pair against q, k, v and o
-// moved once: at the model shapes (S = 4096, D = 128 or 256) the kernel is
-// bound by operations, on the bf16 tensor cores (989 TFLOP/s) for a bf16
-// caller.  This first version runs on the fp32 CUDA cores (67 TFLOP/s), so
-// it is at least 15x over that bound by design; wgmma, TMA and a split over
-// keys for short query blocks are later work.
+// moved once: at the model shapes (S = 4096, D = 128 or 256) the work is
+// bound by operations, on the bf16 tensor cores (989 TFLOP/s); a chunked
+// decode (Sq = 128) is bound by the bytes of K and V.
 //
-// Design (simple first).  One 256-thread block owns one (batch, query head,
-// 64-row query tile).  The query tile is staged once, transposed, in shared
-// memory; each 64-key tile of K is staged transposed and then replaced by
-// the same tile of V, so shared memory holds Qt[D][68], one K/V buffer and
-// Pt[64][68] (156 KB at D = 256, 87 KB at D = 128, two blocks per SM).
-// Thread (ty, tx) of a 16 x 16 grid owns query rows 4ty..4ty+3: it
-// computes the 4 x 4 scores of keys 4tx..4tx+3 from 16-byte shared reads,
-// reduces the row max and sum across the 16 lanes of its row with warp
-// shuffles (the 16 lanes of a row are one half-warp), keeps m and l of its
-// rows in registers, and accumulates the 4 x D/16 output columns
-// 64c + 4tx + {0..3} from Pt and V.  Tiles of query rows run from the last
-// to the first, so under a causal mask the longest blocks start first.
+// Two routes, chosen by the caller's dtype (ops.py counts each):
+//
+// bf16 -> the tensor-core kernel (flash_tc_kernel), FlashAttention-2 shaped.
+//   One 128-thread block owns one (batch, query head, 64-row query tile);
+//   each of its 4 warps owns 16 query rows.  K and V tiles (64 keys, 32 at
+//   D = 256) are double-buffered in shared memory by cp.async, rows padded
+//   by 16 bytes so that ldmatrix reads no bank twice.  S = Q K^T runs as
+//   mma.m16n8k16 bf16 -> fp32 (Q fragments held in registers for D <= 128,
+//   re-read from shared memory at D = 256, where 128 fp32 accumulators a
+//   thread leave no room).  The online softmax runs in registers: a row
+//   lives in the 4 lanes of a quad, reduced by two shuffles; exp is expf.
+//   P V reuses the score fragments as the A operand; V comes through
+//   ldmatrix.trans.
+//
+//   Why P is split.  The reference multiplies fp32 p by fp32 v, and the
+//   port holds a bf16 output to one bf16 step of its plain version.
+//   Rounding p to bf16 (8 bits) before the product pushes some outputs of
+//   a 4096-key decode past that step (70 of 65,536 in the port's CPU test
+//   of these numerics).  So P is split into Ph = bf16(P) and
+//   Pl = bf16(P - Ph), and the kernel accumulates Ph V + Pl V: p keeps
+//   about 16 bits and v is exact in bf16.  This costs 1.5x the tensor-core
+//   work of plain FlashAttention-2.
+//
+//   Split-KV.  When B * Hq * ceil(Sq / 64) blocks would leave the SMs idle
+//   (decode), the caller splits each block's kv tiles into n_split chunks
+//   of tiles_per_split tiles (ops.attention_splits).  Each chunk writes its
+//   unnormalised fp32 accumulator and its rows' m and l to a workspace, and
+//   merge_kernel combines the chunks by log-sum-exp and casts to bf16.  A
+//   chunk that sees no key of a row leaves m = -1e30 and l = 0 for it,
+//   which the merge weighs by 0.
+//
+// fp32 -> the CUDA-core kernel (flash_kernel), unchanged from the first
+//   port: every product and sum is IEEE fp32 FMA (expf, no fast math), so
+//   fp32 inputs keep fp32 accuracy, which TF32 tensor cores would not.  One
+//   256-thread block owns one (batch, query head, 64-row query tile); Q is
+//   staged once, transposed, and one shared buffer holds each tile's K
+//   (transposed) and then its V; thread (ty, tx) of a 16 x 16 grid owns
+//   query rows 4ty..4ty+3 and reduces a row over its half-warp.
+//
+// Both kernels visit query tiles from the last to the first, so under a
+// causal mask the longest blocks start first.  wgmma, TMA and one block
+// serving all query heads of a KV head are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,19 +76,10 @@ constexpr int LDT = 68;       // leading dim of the transposed tiles: 16-byte
                               // rows, and a transposing store 4-way at most
 constexpr float MASKED = -1e30f;
 
-enum DType { DT_FLOAT32 = 0, DT_BFLOAT16 = 1 };
-
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) {
   return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);   // round to nearest even, as torch's cast
 }
 
 // Max and sum over the 16 lanes that share a query row (one half-warp).
@@ -264,24 +279,389 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B,
   return -1;
 }
 
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int BQ = 64;          // query rows per block, 16 per warp
+constexpr int THREADS = 128;    // 4 warps
+constexpr int MERGE_THREADS = 64;
+constexpr float MASKED = -1e30f;
+
+template <int D>
+struct Cfg {
+  static constexpr int BK = D <= 128 ? 64 : 32;    // keys per kv tile
+  static constexpr int LDS = D + 8;    // bf16 per shared row: +16 bytes puts
+                                       // 8 rows of an ldmatrix on 8 banks
+  static constexpr bool Q_REGS = D <= 128;
+  static constexpr int SMEM_BYTES = (BQ + 4 * BK) * LDS * 2;   // Q, 2 K, 2 V
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy; zero-fills the destination when !pred.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
+                   "r"(smem_addr(dst)), "l"(src), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c[16x8] += a[16x16] b[16x8], bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// (x, y) -> hi = bf16(x, y), lo = bf16(x - hi, y - hi): hi + lo keeps about
+// 16 bits of each
+__device__ __forceinline__ void split_bf16(float x, float y, unsigned& hi,
+                                           unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  hi = as_u32(h);
+  lo = as_u32(__floats2bfloat162_rn(x - __low2float(h), y - __high2float(h)));
+}
+
+// Stage rows [row0, row0 + ROWS) of a [n_rows, D] bf16 matrix into a
+// [ROWS][LDS] shared tile; rows past n_rows are zero.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(bf16* sm, const bf16* g, int row0,
+                                          int n_rows, int tid) {
+  constexpr int CPR = D / 8;   // 16-byte chunks per row
+  static_assert(ROWS * CPR % THREADS == 0, "whole chunks per thread");
+#pragma unroll
+  for (int i = 0; i < ROWS * CPR / THREADS; ++i) {
+    const int c = tid + i * THREADS;
+    const int r = c / CPR, cc = c % CPR;
+    const bool ok = row0 + r < n_rows;
+    const bf16* src = g + static_cast<long long>(ok ? row0 + r : 0) * D + cc * 8;
+    cp_async16(sm + r * Cfg<D>::LDS + cc * 8, src, ok);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, bf16* __restrict__ o,
+                float* __restrict__ ws_o, float* __restrict__ ws_m,
+                float* __restrict__ ws_l, int Hq, int Hkv, int Sq, int Sk,
+                int causal, float scale, int n_split, int tiles_per_split) {
+  using C = Cfg<D>;
+  constexpr int BK = C::BK, LDS = C::LDS;
+  constexpr int NT_S = BK / 8;    // 8-key score tiles of a warp
+  constexpr int NT_O = D / 8;     // 8-column output tiles of a warp
+  constexpr int KD = D / 16;      // 16-deep steps of Q K^T
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);   // [BQ][LDS]
+  bf16* Ks = Qs + BQ * LDS;                       // [2][BK][LDS]
+  bf16* Vs = Ks + 2 * BK * LDS;                   // [2][BK][LDS]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z / n_split, split = blockIdx.z % n_split;
+  const int hk = h / (Hq / Hkv);
+  const int offset = Sk - Sq;
+  const long long bh = static_cast<long long>(b) * Hq + h;
+  const bf16* qg = q + bh * Sq * D;
+  const bf16* kg = k + (static_cast<long long>(b) * Hkv + hk) * Sk * D;
+  const bf16* vg = v + (static_cast<long long>(b) * Hkv + hk) * Sk * D;
+  const int qw = q0 + warp * 16;                  // first row of this warp
+  const int qi[2] = {qw + g, qw + g + 8};         // this thread's two rows
+
+  // kv tiles up to the one holding the last key the last real row may see,
+  // then this block's chunk of them
+  int n_tiles = (Sk + BK - 1) / BK;
+  if (causal) n_tiles = min(n_tiles, (min(q0 + BQ, Sq) - 1 + offset) / BK + 1);
+  const int t_begin = split * tiles_per_split;
+  const int t_end = min(n_tiles, t_begin + tiles_per_split);
+
+  float acc[NT_O][4];
+#pragma unroll
+  for (int n = 0; n < NT_O; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m_run[2] = {MASKED, MASKED}, l_run[2] = {0.f, 0.f};
+  unsigned qf[C::Q_REGS ? KD : 1][4];
+
+  if (t_begin < t_end) {
+    load_tile<D, BQ>(Qs, qg, q0, Sq, tid);
+    load_tile<D, BK>(Ks, kg, t_begin * BK, Sk, tid);
+    load_tile<D, BK>(Vs, vg, t_begin * BK, Sk, tid);
+    cp_async_commit();
+  }
+  for (int t = t_begin; t < t_end; ++t) {
+    const int buf = (t - t_begin) & 1;
+    cp_async_wait_all();
+    __syncthreads();   // tile t has landed; tile t-1's buffer is free
+    if (t + 1 < t_end) {
+      load_tile<D, BK>(Ks + (buf ^ 1) * BK * LDS, kg, (t + 1) * BK, Sk, tid);
+      load_tile<D, BK>(Vs + (buf ^ 1) * BK * LDS, vg, (t + 1) * BK, Sk, tid);
+      cp_async_commit();
+    }
+    const bf16* Kb = Ks + buf * BK * LDS;
+    const bf16* Vb = Vs + buf * BK * LDS;
+    if constexpr (C::Q_REGS) {
+      if (t == t_begin) {
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk)
+          ldsm_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * LDS + kk * 16 +
+                              (lane >> 4) * 8);
+      }
+    }
+
+    // S = Q K^T for this warp's 16 rows and the tile's BK keys
+    float s[NT_S][4];
+#pragma unroll
+    for (int j = 0; j < NT_S; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      unsigned a[4];
+      if constexpr (C::Q_REGS) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
+      } else {
+        ldsm_x4(a, Qs + (warp * 16 + (lane & 15)) * LDS + kk * 16 +
+                       (lane >> 4) * 8);
+      }
+#pragma unroll
+      for (int j = 0; j < NT_S / 2; ++j) {
+        unsigned bk[4];
+        ldsm_x4(bk, Kb + (j * 16 + (lane >> 4) * 8 + (lane & 7)) * LDS +
+                        kk * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * j], a, bk[0], bk[1]);
+        mma_bf16(s[2 * j + 1], a, bk[2], bk[3]);
+      }
+    }
+
+    // scale and mask; s[j][e] is row qi[e >> 1], key k0 + 8j + 2tq + (e & 1)
+    const int k0 = t * BK;
+    const bool edge = k0 + BK > Sk || (causal && k0 + BK - 1 > qw + offset);
+    float mx[2] = {MASKED, MASKED};
+#pragma unroll
+    for (int j = 0; j < NT_S; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale;
+        if (edge) {
+          const int key = k0 + j * 8 + 2 * tq + (e & 1);
+          const bool seen =
+              key < Sk && (!causal || key <= qi[e >> 1] + offset);
+          x = seen ? x : MASKED;
+        }
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    // online softmax: a row's 16 or 8 values a thread lie in one quad
+    float alpha[2], m_use[2], rsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_run[r], mx[r]);
+      alpha[r] = expf(m_run[r] - m_new);
+      // a row that has seen no key yet keeps p = 0 (a chunk of a split)
+      m_use[r] = m_new == MASKED ? 0.f : m_new;
+      m_run[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < NT_S; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[j][e] - m_use[e >> 1]);
+        s[j][e] = p;
+        rsum[e >> 1] += p;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 1);
+      rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 2);
+      l_run[r] = l_run[r] * alpha[r] + rsum[r];
+    }
+#pragma unroll
+    for (int n = 0; n < NT_O; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+
+    // O += Ph V + Pl V, 16 keys at a time
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      unsigned ph[4], pl[4];
+      split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+      split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+      for (int n = 0; n < D / 16; ++n) {
+        unsigned bv[4];
+        ldsm_x4_trans(bv, Vb + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                   LDS + n * 16 + (lane >> 4) * 8);
+        mma_bf16(acc[2 * n], ph, bv[0], bv[1]);
+        mma_bf16(acc[2 * n], pl, bv[0], bv[1]);
+        mma_bf16(acc[2 * n + 1], ph, bv[2], bv[3]);
+        mma_bf16(acc[2 * n + 1], pl, bv[2], bv[3]);
+      }
+    }
+  }
+
+  // epilogue: the normalised bf16 rows, or this chunk's partials
+  const long long rows = static_cast<long long>(gridDim.z / n_split) * Hq * Sq;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (qi[r] >= Sq) continue;
+    const long long row = bh * Sq + qi[r];
+    if (n_split == 1) {
+      const float safe = l_run[r] == 0.f ? 1.f : l_run[r];
+#pragma unroll
+      for (int n = 0; n < NT_O; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(o + row * D + n * 8 + 2 * tq) =
+            __floats2bfloat162_rn(acc[n][2 * r] / safe,
+                                  acc[n][2 * r + 1] / safe);
+    } else {
+      const long long prow = split * rows + row;
+#pragma unroll
+      for (int n = 0; n < NT_O; ++n)
+        *reinterpret_cast<float2*>(ws_o + prow * D + n * 8 + 2 * tq) =
+            make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
+      if (tq == 0) {
+        ws_m[prow] = m_run[r];
+        ws_l[prow] = l_run[r];
+      }
+    }
+  }
+}
+
+// One block per output row: o = sum_s w_s acc_s / sum_s w_s l_s with
+// w_s = exp(m_s - max_s m_s), cast to bf16.
+__global__ void __launch_bounds__(MERGE_THREADS)
+merge_kernel(const float* __restrict__ ws_o, const float* __restrict__ ws_m,
+             const float* __restrict__ ws_l, bf16* __restrict__ o,
+             long long rows, int n_split, int D) {
+  const long long row = blockIdx.x;
+  float m = MASKED;
+  for (int s = 0; s < n_split; ++s) m = fmaxf(m, ws_m[s * rows + row]);
+  float l = 0.f;
+  for (int s = 0; s < n_split; ++s)
+    l += expf(ws_m[s * rows + row] - m) * ws_l[s * rows + row];
+  const float safe = l == 0.f ? 1.f : l;
+  for (int d = threadIdx.x; d < D; d += MERGE_THREADS) {
+    float a = 0.f;
+    for (int s = 0; s < n_split; ++s)
+      a += expf(ws_m[s * rows + row] - m) * ws_o[(s * rows + row) * D + d];
+    o[row * D + d] = __float2bfloat16(a / safe);
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, float* ws_o,
+           float* ws_ml, int B, int Hq, int Hkv, int Sq, int Sk, int causal,
+           int n_split, int tiles_per_split, cudaStream_t st) {
+  constexpr int bytes = Cfg<D>::SMEM_BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long rows = static_cast<long long>(B) * Hq * Sq;
+  float* ws_m = ws_ml;
+  float* ws_l = ws_ml ? ws_ml + n_split * rows : nullptr;
+  const dim3 grid((Sq + BQ - 1) / BQ, Hq, B * n_split);
+  flash_tc_kernel<D><<<grid, THREADS, bytes, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), ws_o, ws_m, ws_l,
+      Hq, Hkv, Sq, Sk, causal,
+      static_cast<float>(1.0 / std::sqrt(static_cast<double>(D))), n_split,
+      tiles_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
+  merge_kernel<<<static_cast<unsigned>(rows), MERGE_THREADS, 0, st>>>(
+      ws_o, ws_m, ws_l, static_cast<bf16*>(o), rows, n_split, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
 }  // namespace
 
-// C entry point (bound with ctypes).  Launches on ``stream`` and returns the
-// cudaGetLastError() code of the launch, or -1 for an unsupported type code,
-// head_dim or head grouping, or Sk < Sq.
-extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int dt, int B,
-                                      int Hq, int Hkv, int Sq, int Sk, int D,
-                                      int causal, void* stream) {
+// C entry points (bound with ctypes).  Each launches on ``stream`` and
+// returns the cudaGetLastError() code of its launches, or -1 for an
+// unsupported head_dim or head grouping, or Sk < Sq.
+
+// fp32 q, k, v and o: the CUDA-core kernel.
+extern "C" int flash_attention_fp32_launch(const void* q, const void* k,
+                                           const void* v, void* o, int B,
+                                           int Hq, int Hkv, int Sq, int Sk,
+                                           int D, int causal, void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0 || Sk < Sq) return -1;
   if (B == 0 || Hq == 0 || Sq == 0) return 0;
+  return launch_d<float>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, causal,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// bf16 q, k, v and o (16-byte aligned): the tensor-core kernel.  With
+// n_split > 1, ws_o holds n_split * B * Hq * Sq * D floats and ws_ml
+// 2 * n_split * B * Hq * Sq (m, then l); each of the n_split chunks covers
+// tiles_per_split kv tiles of 64 keys (32 at D = 256).
+extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
+                                           const void* v, void* o,
+                                           void* ws_o, void* ws_ml, int B,
+                                           int Hq, int Hkv, int Sq, int Sk,
+                                           int D, int causal, int n_split,
+                                           int tiles_per_split,
+                                           void* stream) {
+  if (Hkv <= 0 || Hq % Hkv != 0 || Sk < Sq || n_split < 1 ||
+      tiles_per_split < 1 || (n_split > 1 && (!ws_o || !ws_ml)))
+    return -1;
+  if (B == 0 || Hq == 0 || Sq == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dt) {
-    case DT_FLOAT32:
-      return launch_d<float>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, causal, st);
-    case DT_BFLOAT16:
-      return launch_d<__nv_bfloat16>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D,
-                                     causal, st);
+  float* wo = static_cast<float*>(ws_o);
+  float* wml = static_cast<float*>(ws_ml);
+  switch (D) {
+    case 64:
+      return tc::launch<64>(q, k, v, o, wo, wml, B, Hq, Hkv, Sq, Sk, causal,
+                            n_split, tiles_per_split, st);
+    case 128:
+      return tc::launch<128>(q, k, v, o, wo, wml, B, Hq, Hkv, Sq, Sk, causal,
+                             n_split, tiles_per_split, st);
+    case 256:
+      return tc::launch<256>(q, k, v, o, wo, wml, B, Hq, Hkv, Sq, Sk, causal,
+                             n_split, tiles_per_split, st);
   }
   return -1;
 }

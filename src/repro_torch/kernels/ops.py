@@ -5,14 +5,17 @@ the CPU.  For CUDA tensors it launches the kernel or raises — there is no
 fallback.  Each wrapper counts its launches in an integer attribute
 (``block_spmm.launches``, ``segment_multi_agg.launches``,
 ``flash_attention.launches``) so a run can show that the main path went
-through the kernel.  ``bucketize_messages`` is the host-free layout step
-that feeds ``segment_multi_agg``.
+through the kernel.  ``block_spmm`` and ``flash_attention`` pick a route by
+dtype and count it in ``launches_by_route``: ``"tc"`` for the tensor cores
+(u8 for integer hops, bf16 for attention), ``"fp32"`` for the CUDA-core
+kernel that float32 operands keep.  ``bucketize_messages`` is the
+host-free layout step that feeds ``segment_multi_agg``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -23,22 +26,54 @@ _DT = {torch.int32: 0, torch.uint8: 1, torch.float32: 2}
 _F_TYPES = (torch.int32, torch.uint8, torch.bool, torch.float32)
 _A_TYPES = (torch.int32, torch.float32)
 _OUT_TYPES = (torch.float32, torch.int32, torch.uint8)
+# output rows, output columns and K slab of a block of the u8 kernel
+SPMM_TILE = (256, 128, 64)
 
 
 def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
 @functools.lru_cache(maxsize=None)
-def _spmm_fn():
+def _spmm_fns():
     from repro_torch.kernels.build import load
-    fn = load("block_spmm").block_spmm_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+    lib = load("block_spmm")
+    u8 = lib.block_spmm_u8_launch
+    u8.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    f32 = lib.block_spmm_fp32_launch
+    f32.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_void_p]
+    for fn in (u8, f32):
+        fn.restype = ctypes.c_int
+    return {"tc": u8, "fp32": f32}
+
+
+_slow_slabs: Dict[torch.device, torch.Tensor] = {}
+
+
+def spmm_slow_slabs(device) -> torch.Tensor:
+    """The device's int64 count of (block, K slab) pairs that
+    ``block_spmm``'s u8 route ran on the CUDA cores because a value of the
+    slab lay outside 0..255.  Launches add to it on the card without a
+    sync; reading it syncs, ``.zero_()`` resets it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    counter = _slow_slabs.get(dev)
+    if counter is None:
+        counter = torch.zeros((), dtype=torch.int64, device=dev)
+        _slow_slabs[dev] = counter
+    return counter
 
 
 def block_spmm(F: torch.Tensor, A: torch.Tensor,
@@ -50,7 +85,10 @@ def block_spmm(F: torch.Tensor, A: torch.Tensor,
     F: [S, K] frontier (int32, bool/uint8 or float32), A: [K, N] adjacency
     (int32 or float32), col_mask: optional [N] destination mask.  Returns
     [S, N] in ``out_dtype`` (float32, int32, or uint8 for the bool semiring).
-    Integer outputs are exact while walk counts stay below 2^24.
+    Integer outputs are exact while walk counts stay below 2^24.  Integer
+    F and A take the u8 tensor-core route (exact; a K slab holding a value
+    outside 0..255 runs on the CUDA cores, see ``spmm_slow_slabs``); a
+    float32 operand takes the fp32 CUDA-core route.
     """
     if F.dim() != 2 or A.dim() != 2 or F.shape[1] != A.shape[0]:
         raise ValueError(f"block_spmm shapes F{tuple(F.shape)} @ "
@@ -84,25 +122,47 @@ def block_spmm(F: torch.Tensor, A: torch.Tensor,
     if col_mask is not None:
         mask = col_mask.to(torch.float32).contiguous()
     out = torch.empty((S, N), dtype=out_dtype, device=dev)
-    rc = _spmm_fn()(
-        F.data_ptr(), _DT[F.dtype], A.data_ptr(), _DT[A.dtype],
-        mask.data_ptr() if mask is not None else None, out.data_ptr(),
-        _DT[out_dtype], S, K, N, 0 if counting else 1,
-        _stream(dev))
+    route = "fp32" if torch.float32 in (F.dtype, A.dtype) else "tc"
+    common = (mask.data_ptr() if mask is not None else None, out.data_ptr(),
+              _DT[out_dtype], S, K, N, 0 if counting else 1)
+    bm, bn, bk = SPMM_TILE
+    if route == "tc":
+        f8 = flags = None
+        if F.dtype == torch.int32:
+            # the kernel's u8 copy of F, and a range flag per 128 x 64 region
+            f8 = torch.empty((S, K), dtype=torch.uint8, device=dev)
+            flags = torch.empty(_cdiv(S, 128) * _cdiv(K, bk),
+                                dtype=torch.int32, device=dev)
+        rc = _spmm_fns()["tc"](
+            F.data_ptr(), _DT[F.dtype], A.data_ptr(), *common,
+            f8.data_ptr() if f8 is not None else None,
+            flags.data_ptr() if flags is not None else None,
+            spmm_slow_slabs(dev).data_ptr(), _stream(dev))
+    else:
+        rc = _spmm_fns()["fp32"](F.data_ptr(), _DT[F.dtype], A.data_ptr(),
+                                 _DT[A.dtype], *common, _stream(dev))
     if rc != 0:
-        raise RuntimeError(f"block_spmm launch failed: CUDA error {rc}")
+        raise RuntimeError(f"block_spmm {route} launch failed: CUDA error "
+                           f"{rc}")
     block_spmm.launches += 1
+    block_spmm.launches_by_route[route] += 1
+    if route == "tc":
+        block_spmm.slabs += _cdiv(S, bm) * _cdiv(N, bn) * _cdiv(K, bk)
     return out
 
 
 block_spmm.launches = 0
+block_spmm.launches_by_route = {"tc": 0, "fp32": 0}
+#: (block, K slab) pairs the u8 route launched: the denominator of
+#: ``spmm_slow_slabs``
+block_spmm.slabs = 0
 
 
 # ---------------------------------------------------------------------------
 # segment_multi_agg
 # ---------------------------------------------------------------------------
 
-# dtype codes of csrc/segment_agg.cu and csrc/flash_attention.cu
+# dtype codes of csrc/segment_agg.cu; the float types flash_attention takes
 _FLOAT_DT = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -205,14 +265,47 @@ segment_multi_agg.launches = 0
 HEAD_DIMS = (64, 128, 256)
 
 
+#: query rows of a block and keys of a kv tile of the bf16 kernel, by D
+ATTN_BLOCK_Q = 64
+ATTN_TILE_K = {64: 64, 128: 64, 256: 32}
+
+
 @functools.lru_cache(maxsize=None)
-def _flash_fn():
+def _flash_fns():
     from repro_torch.kernels.build import load
-    fn = load("flash_attention").flash_attention_launch
-    fn.argtypes = [*[ctypes.c_void_p] * 4, ctypes.c_int, *[ctypes.c_int] * 6,
-                   ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib = load("flash_attention")
+    f32 = lib.flash_attention_fp32_launch
+    f32.argtypes = [*[ctypes.c_void_p] * 4, *[ctypes.c_int] * 7,
+                    ctypes.c_void_p]
+    tc = lib.flash_attention_bf16_launch
+    tc.argtypes = [*[ctypes.c_void_p] * 6, *[ctypes.c_int] * 9,
+                   ctypes.c_void_p]
+    for fn in (f32, tc):
+        fn.restype = ctypes.c_int
+    return {"tc": tc, "fp32": f32}
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def attention_splits(B: int, Hq: int, Sq: int, Sk: int, D: int,
+                     n_sm: int) -> Tuple[int, int]:
+    """``(n_split, tiles_per_split)`` of the bf16 kernel's split over keys.
+
+    When ``B * Hq * ceil(Sq / 64)`` blocks leave SMs idle, each block's kv
+    tiles are cut into chunks: about two blocks per SM, at most one chunk
+    per kv tile.  The last chunk may be shorter; none is empty for the
+    last query tile.  ``(1, n_kv_tiles)`` means no split.
+    """
+    n_kv = max(_cdiv(Sk, ATTN_TILE_K[D]), 1)
+    blocks = B * Hq * _cdiv(Sq, ATTN_BLOCK_Q)
+    if blocks == 0 or blocks >= n_sm:
+        return 1, n_kv
+    n_split = min(_cdiv(2 * n_sm, blocks), n_kv)
+    per = _cdiv(n_kv, n_split)
+    return _cdiv(n_kv, per), per
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -223,7 +316,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (query head h reads KV head h // (Hq/Hkv), no repeat), Sk >= Sq, D in
     64/128/256, all float32 or all bfloat16.  Scale 1/sqrt(D); the causal
     diagonal is shifted by Sk - Sq (chunked decode).  Returns [B, Hq, Sq, D]
-    in ``q.dtype``.
+    in ``q.dtype``.  bfloat16 runs on the tensor cores (split over keys
+    when the query blocks are few, ``attention_splits``), float32 on the
+    CUDA cores.
     """
     if q.dim() != 4 or k.dim() != 4 or tuple(k.shape) != tuple(v.shape):
         raise ValueError(f"flash_attention takes q [B,Hq,Sq,D] and k, v "
@@ -254,13 +349,38 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention needs contiguous q, k and v")
     out = torch.empty_like(q)
-    rc = _flash_fn()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _FLOAT_DT[q.dtype], B, Hq, Hkv, Sq, Sk, D, int(causal), _stream(dev))
+    shape = (B, Hq, Hkv, Sq, Sk, D, int(causal))
+    if q.dtype == torch.bfloat16:
+        route = "tc"
+        if any(x.data_ptr() % 16 for x in (q, k, v)):
+            raise ValueError("flash_attention needs 16-byte aligned bf16 "
+                             "q, k and v")
+        n_split, per = attention_splits(B, Hq, Sq, Sk, D,
+                                        _sm_count(dev.index))
+        ws_o = ws_ml = None
+        if n_split > 1:
+            rows = B * Hq * Sq
+            ws_o = torch.empty((n_split, rows, D), dtype=torch.float32,
+                               device=dev)
+            ws_ml = torch.empty((2, n_split, rows), dtype=torch.float32,
+                                device=dev)
+        rc = _flash_fns()["tc"](
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            ws_o.data_ptr() if ws_o is not None else None,
+            ws_ml.data_ptr() if ws_ml is not None else None,
+            *shape, n_split, per, _stream(dev))
+    else:
+        route = "fp32"
+        rc = _flash_fns()["fp32"](
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *shape,
+            _stream(dev))
     if rc != 0:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
+        raise RuntimeError(f"flash_attention {route} launch failed: CUDA "
+                           f"error {rc}")
     flash_attention.launches += 1
+    flash_attention.launches_by_route[route] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = {"tc": 0, "fp32": 0}

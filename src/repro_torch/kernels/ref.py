@@ -126,3 +126,21 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = torch.where(mask, logits, -1e30)
     p = torch.softmax(logits, dim=-1)
     return matmul_f32(p, vf).to(q.dtype)
+
+
+def merge_attention_partials(acc: torch.Tensor, m: torch.Tensor,
+                             l: torch.Tensor,
+                             out_dtype: torch.dtype = torch.float32
+                             ) -> torch.Tensor:
+    """Combine split-KV partials by log-sum-exp, as the kernel's merge does.
+
+    acc: [n, ..., D] each chunk's unnormalised fp32 sum of p·v; m, l:
+    [n, ...] its rows' running max and sum of p (m = -1e30 and l = 0 where
+    a chunk saw no key of a row).  Returns ``Σ w·acc / Σ w·l`` with
+    ``w = exp(m - max m)`` over the chunks, a zero denominator dividing by
+    1, in ``out_dtype``.
+    """
+    w = torch.exp(m - m.amax(dim=0, keepdim=True))
+    den = (w * l).sum(dim=0)
+    den = torch.where(den == 0, 1.0, den)
+    return ((w[..., None] * acc).sum(dim=0) / den[..., None]).to(out_dtype)

@@ -138,8 +138,10 @@ def test_chip_smoke_kernel_phases_rehearse_on_cpu():
     scatter oracle against bucketize + segment_multi_agg on a tiny SNB
     graph, the SDPA yardstick (lower-right diagonal, grouped KV) against
     the plain attention at a decode shape within the bf16 tolerance, that
-    tolerance refusing a diagonal shifted by one key, and the attention
-    bound counting the visible pairs."""
+    tolerance refusing a diagonal shifted by one key, phase 2's operands
+    above 255 through the plain version, the ``block_spmm`` bound (bytes,
+    0.90 ms at the workload shape) and the attention bound counting the
+    visible pairs."""
     import importlib.util
 
     from repro_torch.data.synthetic import snb_like
@@ -171,6 +173,13 @@ def test_chip_smoke_kernel_phases_rehearse_on_cpu():
     shifted = ref.flash_attention_ref(q, k[:, :, :-1], v[:, :, :-1])
     assert not torch.allclose(shifted.to(torch.float32), want, rtol=rtol,
                               atol=atol)
+
+    for name, (F, A, _) in smoke.wide_cases("cpu").items():
+        assert int(max(F.max(), A.max())) > 255, name
+        assert torch.equal(ops.block_spmm(F, A, out_dtype=torch.int32),
+                           ref.block_spmm_ref(F, A).to(torch.int32)), name
+    bound_ms, bound_by = smoke.spmm_bound_ms(*smoke.WORKLOAD_SHAPE)
+    assert bound_by == "bytes" and 0.89 < bound_ms < 0.91
 
     q, k = torch.zeros((1, 1, 4, 8)), torch.zeros((1, 1, 6, 8))
     pairs = int(ref._causal_mask(4, 6, "cpu").sum())

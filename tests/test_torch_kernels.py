@@ -4,7 +4,9 @@ On the CPU the wrapper takes the plain PyTorch version; it must agree with
 the reference Pallas kernel (interpret mode) and ``ref.block_spmm_ref``:
 bit-exact on integer-valued inputs, within the reference's own rtol on
 random floats.  Tests marked ``cuda`` hold the CUDA kernel against the plain
-version on the card and skip on a host without one.
+version on the card and skip on a host without one: the u8 tensor-core
+route for integer operands (values above 255 in some K slabs send those
+slabs to the CUDA cores) and the fp32 route for float operands.
 """
 from types import SimpleNamespace
 
@@ -94,6 +96,43 @@ def test_block_spmm_random_floats(R, shape, masked):
     # sums of random floats in another order: the reference's own rtol
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                rtol=1e-6 if masked else 1e-5)
+
+
+def _wide_inputs(case, seed):
+    """Integer operands whose values leave 0..255: everywhere (``above``)
+    or only in the second 64-deep K slab (``mixed``), with every sum
+    below 2^24 so that the fp32 reference stays exact."""
+    rng = np.random.default_rng(seed)
+    S, K, N = 130, 200, 150
+    F = rng.integers(0, 3, (S, K))
+    A = (rng.random((K, N)) < 0.3).astype(np.int64)
+    if case == "above":
+        F = F * rng.integers(100, 1000, (S, K))
+        A = A * rng.integers(1, 300, (K, N))
+    else:
+        F[:, 64:128] *= 300
+        A[64:128] *= 257
+    assert int((F @ A).max()) < 2 ** 24 and int(max(F.max(), A.max())) > 255
+    return F.astype(np.int32), A.astype(np.int32)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("case", ["above", "mixed"])
+def test_block_spmm_above_255_matches_reference(R, case, masked):
+    """Walk counts and multiplicities above 255 (which the card's u8 route
+    sends to the CUDA cores slab by slab): the plain version equals the
+    reference kernel and oracle exactly."""
+    F, A = _wide_inputs(case, 21)
+    mask = np.random.default_rng(22).integers(0, 2, (A.shape[1],)).astype(
+        np.float32) if masked else None
+    got = p_ops.block_spmm(torch.from_numpy(F), torch.from_numpy(A),
+                           None if mask is None else torch.from_numpy(mask),
+                           counting=True, out_dtype=torch.int32)
+    jm = None if mask is None else R.jnp.asarray(mask)
+    kernel = R.ops.block_spmm(R.jnp.asarray(F), R.jnp.asarray(A), jm)
+    oracle = R.ref.block_spmm_ref(R.jnp.asarray(F), R.jnp.asarray(A), jm)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(kernel))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(oracle))
 
 
 def test_block_spmm_hop_equivalence_with_executor():
@@ -186,3 +225,44 @@ def test_cuda_kernel_matches_plain(cuda_device, shape, semiring):
     assert p_ops.block_spmm.launches == before + 1
     want = p_ref.block_spmm_ref(*args, semiring=semiring)
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("case", ["small", "above", "mixed"])
+def test_cuda_u8_route_exact(cuda_device, case, masked):
+    """Integer operands take the u8 tensor-core route, exact; slabs with a
+    value above 255 run on the CUDA cores, and only those."""
+    if case == "small":
+        F, A, _ = _inputs((130, 200, 150), 23)
+        F = F.astype(np.int32)
+    else:
+        F, A = _wide_inputs(case, 24)
+    mask = torch.from_numpy(np.random.default_rng(25).integers(
+        0, 2, (A.shape[1],))).to(cuda_device) if masked else None
+    tF, tA = (torch.from_numpy(x).to(cuda_device) for x in (F, A))
+    slow = p_ops.spmm_slow_slabs(cuda_device)
+    slow.zero_()
+    before = p_ops.block_spmm.launches_by_route["tc"]
+    got = p_ops.block_spmm(tF, tA, mask, counting=True,
+                           out_dtype=torch.int32)
+    assert p_ops.block_spmm.launches_by_route["tc"] == before + 1
+    want = p_ref.block_spmm_ref(tF, tA, mask)
+    assert torch.equal(got.to(torch.float32), want)
+    # one block of two row tiles, two column blocks, four K slabs
+    assert int(slow) == {"small": 0, "above": 8, "mixed": 2}[case]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("semiring", ["count", "bool"])
+def test_cuda_fp32_route(cuda_device, semiring):
+    """A float32 operand takes the fp32 CUDA-core route."""
+    F, A, mask = _inputs((100, 200, 150), 26)
+    tF, tA, tm = (torch.from_numpy(x).to(cuda_device, torch.float32)
+                  for x in (F, A, mask))
+    before = p_ops.block_spmm.launches_by_route["fp32"]
+    got = p_ops.block_spmm(tF, tA.to(torch.int32), tm,
+                           counting=semiring == "count")
+    assert p_ops.block_spmm.launches_by_route["fp32"] == before + 1
+    assert torch.equal(got, p_ref.block_spmm_ref(tF, tA, tm,
+                                                 semiring=semiring))
