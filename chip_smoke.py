@@ -20,9 +20,16 @@ Phases:
      rows and DBHit/Rows, writes keeping every view consistent; the share
      of u8 K slabs that took the CUDA cores in phases 3-4 is read after;
   5. segment aggregation: ``segment_multi_agg`` against its plain version
-     at unit shapes and on messages bucketed from the SNB graph, timed; then
-     its main path, ``bucketize_messages`` + ``segment_multi_agg``, checked
-     against a scatter formulation of the same aggregates;
+     at unit shapes (ragged N, W from 1 to 70, rows all valid and empty,
+     one to three column chunks), and on messages bucketed from the
+     SNB graph and from one ten times its size, in fp32 and bf16, with max
+     and min bit for bit against a scatter formulation; each SNB shape
+     timed on the device from a profiler trace with the L2 flushed, per
+     call with the host, beside its byte bound, its plain version and
+     ``bucketize_messages``; NaN cases (a NaN of a valid slot reaches all
+     four outputs, one of an invalid slot neither max nor min); then its
+     main path, ``bucketize_messages`` + ``segment_multi_agg`` at both SNB
+     shapes, checked against the scatter formulation;
   6. attention: ``flash_attention`` against its plain version at the
      reference's test shapes (fp32), at decode shapes that split over keys
      (bf16 and fp32) and at starcoder2-3b and gemma-2b shapes (bf16), timed
@@ -60,11 +67,21 @@ PEAK_BYTES = 3.35e12
 UNIT_SHAPES = [(8, 16, 12), (128, 128, 128), (100, 200, 150), (256, 384, 128)]
 WORKLOAD_SHAPE = (256, 27264, 27264)   # src_block x node_cap x node_cap
 
-# segment_multi_agg: the reference's test shapes [N, W, D] and tolerances;
-# messages of PNA's full width (d_hidden = 75) on the SNB graph's edges
-AGG_UNIT_SHAPES = [(16, 4, 8), (64, 16, 128), (33, 7, 75)]
+# segment_multi_agg: the reference's test shapes [N, W, D], then W > 64,
+# W = 1 and two slot chunks, with N not a multiple of the kernel's 8 rows a
+# block, at widths that fill every lane's columns (D = 96) or not (75), and
+# in three column chunks of 128 (300, 333); the reference's tolerances;
+# messages of PNA's full width (d_hidden = 75) on the SNB graph's edges, at
+# the generator's defaults and at ten times its sizes (SNB_X10), where the
+# valid slots' messages alone outgrow the card's 50 MB L2
+AGG_UNIT_SHAPES = [(16, 4, 8), (64, 16, 128), (33, 7, 75), (257, 70, 96),
+                   (9, 1, 75), (50, 33, 333), (40, 40, 300)]
 AGG_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+AGG_OUTPUTS = ("mean", "max", "min", "std")
 PNA_D_HIDDEN = 75
+SNB_X10 = {"n_person": 20000, "n_post": 15000, "n_comment": 120000,
+           "n_place": 600, "n_tag": 3000}
+L2_FLUSH_BYTES = 128 << 20          # 2.5 times the H100's 50 MB L2
 
 # flash_attention: unit shapes (B, Hq, Hkv, Sq, Sk, D) in fp32 -- the
 # reference's test shapes, then decode (Sq < Sk, ragged) and grouped-KV
@@ -100,7 +117,9 @@ def check(cond: bool, what: str) -> None:
 
 
 def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` runs (after one warm-up)."""
+    """Mean time per call of ``fn`` over ``iters`` calls in a row (after
+    one warm-up), by CUDA events: it holds the host's time to issue each
+    call wherever that exceeds the device's work."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -111,6 +130,33 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, kernel: str = "", iters: int = 20,
+              flush: bool = True) -> float:
+    """Mean device time per call of ``fn``: the device work whose name
+    holds ``kernel`` (all of it where ``kernel`` is empty), summed from a
+    ``torch.profiler`` trace, so no host time enters.  With ``flush``, a
+    128 MB write evicts the L2 before each call (it is not counted), as a
+    caller that moved other data just before would leave it."""
+    from torch.profiler import ProfilerActivity, profile
+    check(bool(kernel) or not flush, "device_ms would count the L2 flush")
+    buf = (torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
+           if flush else None)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            if buf is not None:
+                buf.zero_()
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and kernel in e.name]
+    check(len(us) >= iters, f"the profiler saw {len(us)} device ops "
+                            f"named {kernel!r} in {iters} calls")
+    return sum(us) / iters / 1e3
 
 
 def reset_launches(ops) -> None:
@@ -377,19 +423,90 @@ def finbench_phase(scale: float = 1.0, device: str = "cuda") -> dict:
 # phase 5: segment aggregation
 # ---------------------------------------------------------------------------
 
+def agg_inputs(shape, dtype, gen, device):
+    """Seeded messages [N, W, D] in ``dtype`` and validity [N, W] (70% of
+    slots), with row 0 all valid and rows 1-2, where there are such rows,
+    empty."""
+    msg = torch.randn(shape, generator=gen, device=device).to(dtype)
+    valid = torch.rand(shape[:2], generator=gen, device=device) < 0.7
+    valid[0] = True
+    valid[1:3] = False
+    return msg, valid
+
+
+def nan_inputs(dtype, D: int, gen, device):
+    """Messages [24, 40, D] with a NaN in a valid slot before finite values
+    (row 0, column 3), one after them (row 1, column 5, its last valid
+    slot) and one in an invalid slot (row 2, column 7)."""
+    msg, valid = agg_inputs((24, 40, D), dtype, gen, device)
+    valid[0:2, :6] = True
+    valid[1, 6:] = False
+    valid[2, 9], valid[2, 10] = False, True
+    msg[0, 0, 3] = msg[1, 5, 5] = msg[2, 9, 7] = float("nan")
+    return msg, valid
+
+
 def agg_check(ops, ref, msg, valid, what: str) -> float:
     """Kernel against plain version (messages cast to fp32, as the kernel
-    casts them) at the reference's tolerance; returns the max abs error."""
+    casts them) at the reference's tolerance, a NaN equal only to a NaN;
+    returns the max abs error over outputs that are not NaN."""
     got = ops.segment_multi_agg(msg, valid)
     want = ref.segment_multi_agg_ref(msg.to(torch.float32), valid)
     tol = AGG_TOL[msg.dtype]
     err = 0.0
-    for name, g, w in zip(("mean", "max", "min", "std"), got, want):
-        check(torch.allclose(g, w, rtol=tol, atol=tol),
+    for name, g, w in zip(AGG_OUTPUTS, got, want):
+        check(torch.allclose(g, w, rtol=tol, atol=tol, equal_nan=True),
               f"segment_multi_agg {name} != plain at {what}")
         if g.numel():
-            err = max(err, float((g - w).abs().max()))
+            err = max(err, float((g - w).nan_to_num(0.0).abs().max()))
     return err
+
+
+def agg_nan_check(ops, ref, dtype, D: int, gen, device) -> float:
+    """NaN as the reference gives it: a NaN in a valid slot makes all four
+    outputs of its column NaN (``jnp.max`` and ``jnp.min`` propagate it),
+    and a NaN in an invalid slot (row 2) shows in neither max nor min.
+    Against the plain version as ``agg_check``, but for the mean and std of
+    row 2: the plain version, as the reference, takes the invalid slot
+    times 0, and the kernel never reads it (invalid slots must be finite).
+    Returns the max abs error over outputs that are not NaN."""
+    msg, valid = nan_inputs(dtype, D, gen, device)
+    got = ops.segment_multi_agg(msg, valid)
+    want = ref.segment_multi_agg_ref(msg.to(torch.float32), valid)
+    rows = torch.arange(msg.shape[0], device=msg.device) != 2
+    tol = AGG_TOL[dtype]
+    err = 0.0
+    for name, g, w in zip(AGG_OUTPUTS, got, want):
+        check(bool(g[0, 3].isnan()) and bool(g[1, 5].isnan()),
+              f"segment_multi_agg {name} drops a NaN of a valid slot "
+              f"({dtype}, D={D})")
+        if name in ("max", "min"):
+            check(bool(g[2].isfinite().all()),
+                  f"segment_multi_agg {name} shows a NaN of an invalid slot "
+                  f"({dtype}, D={D})")
+        else:
+            g, w = g[rows], w[rows]
+        check(torch.allclose(g, w, rtol=tol, atol=tol, equal_nan=True),
+              f"segment_multi_agg {name} != plain at NaN case {dtype} D={D}")
+        err = max(err, float((g - w).nan_to_num(0.0).abs().max()))
+    return err
+
+
+def snb_messages(gen, device, **sizes):
+    """Destinations of the alive edges of ``snb_like(seed=0, **sizes)`` and
+    seeded fp32 messages of PNA's width for them: (dst, msg, num_nodes)."""
+    from repro_torch.data.synthetic import snb_like
+    g, _, _ = snb_like(seed=0, device=device, **sizes)
+    dst = g.edge_dst[g.edge_alive].to(torch.int64)
+    msg = torch.randn((dst.shape[0], PNA_D_HIDDEN), generator=gen,
+                      device=device)
+    return dst, msg, g.num_nodes()
+
+
+def agg_bytes(valid, n_valid: int, D: int, elem: int) -> int:
+    """Bytes the kernel must move: the validity bytes, the valid slots'
+    messages (``elem`` bytes a value) and four fp32 [N, D] outputs."""
+    return valid.numel() + n_valid * D * elem + 4 * valid.shape[0] * D * 4
 
 
 def scatter_aggregates(dst, msg, num_nodes: int):
@@ -408,73 +525,98 @@ def scatter_aggregates(dst, msg, num_nodes: int):
     return mean, mx, mn
 
 
+def scatter_check(outs, dst, msg, num_nodes: int, what: str) -> None:
+    """Max and min bit for bit, mean within 1e-5/1e-6, of the scatter
+    oracle on the same messages (cast to fp32, as the kernel reads them)."""
+    mean, mx, mn = outs[:3]
+    want_mean, want_max, want_min = scatter_aggregates(
+        dst, msg.to(torch.float32), num_nodes)
+    check(torch.equal(mx, want_max) and torch.equal(mn, want_min),
+          f"segment aggregation max/min differ from the scatter oracle at "
+          f"{what}")
+    check(torch.allclose(mean, want_mean, rtol=1e-5, atol=1e-6),
+          f"segment aggregation mean differs from the scatter oracle at "
+          f"{what}")
+
+
 def segment_phase(ops, ref) -> dict:
-    from repro_torch.data.synthetic import snb_like
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     max_err = 0.0
     for shape in AGG_UNIT_SHAPES:
         for dtype in AGG_TOL:
-            msg = torch.randn(shape, generator=gen, device=dev).to(dtype)
-            valid = torch.rand(shape[:2], generator=gen, device=dev) < 0.7
+            msg, valid = agg_inputs(shape, dtype, gen, dev)
             max_err = max(max_err, agg_check(ops, ref, msg, valid,
                                              f"{shape} {dtype}"))
     log(f"phase 5: unit shapes within tolerance "
         f"({len(AGG_UNIT_SHAPES) * len(AGG_TOL)} cases)")
 
-    g, _, _ = snb_like(seed=0, device="cuda")
-    N = g.num_nodes()
-    dst = g.edge_dst[g.edge_alive].to(torch.int64)
-    msg_e = torch.randn((dst.shape[0], PNA_D_HIDDEN), generator=gen,
-                        device=dev)
-    del g
-    bucketed, valid = ops.bucketize_messages(dst, msg_e, N)
-    W = bucketed.shape[1]
-    n_valid = int(valid.sum())
-    check(n_valid == dst.shape[0], "bucketize_messages dropped messages "
-                                   "below the maximum in-degree")
-    timings = {}
-    for dtype in AGG_TOL:
-        m = bucketed.to(dtype)
-        max_err = max(max_err, agg_check(ops, ref, m, valid,
-                                         f"SNB [{N}, {W}, {PNA_D_HIDDEN}] "
-                                         f"{dtype}"))
-        timings[str(dtype).replace("torch.", "")] = {
-            "ms": cuda_ms(lambda: ops.segment_multi_agg(m, valid), 20),
-            "plain_ms": cuda_ms(lambda: ref.segment_multi_agg_ref(
-                m.to(torch.float32), valid), 5),
-        }
-        del m
-    log(f"phase 5: SNB messages E={dst.shape[0]} -> [{N}, {W}, "
-        f"{PNA_D_HIDDEN}] ({bucketed.numel() * 4} B fp32, {n_valid} valid "
-        f"slots) within tolerance in fp32 and bf16; ms: "
-        + json.dumps(timings))
+    cases = {"SNB": snb_messages(gen, dev),
+             "SNB x10": snb_messages(gen, dev, **SNB_X10)}
+    records = {}
+    for name, (dst, msg_e, N) in cases.items():
+        rec = {"bucketize_ms": cuda_ms(
+                   lambda: ops.bucketize_messages(dst, msg_e, N), 3),
+               "bucketize_device_ms": device_ms(
+                   lambda: ops.bucketize_messages(dst, msg_e, N), iters=3,
+                   flush=False)}
+        bucketed, valid = ops.bucketize_messages(dst, msg_e, N)
+        W, n_valid = bucketed.shape[1], int(valid.sum())
+        check(n_valid == dst.shape[0], f"bucketize_messages dropped messages "
+                                       f"below the maximum in-degree ({name})")
+        rec.update(shape=[N, W, PNA_D_HIDDEN], valid_slots=n_valid,
+                   bucketed_bytes=bucketed.numel() * 4)
+        for dtype in AGG_TOL:
+            m = bucketed.to(dtype)
+            what = f"{name} [{N}, {W}, {PNA_D_HIDDEN}] {dtype}"
+            max_err = max(max_err, agg_check(ops, ref, m, valid, what))
+            scatter_check(ops.segment_multi_agg(m, valid), dst,
+                          msg_e.to(dtype), N, what)
+            need = agg_bytes(valid, n_valid, PNA_D_HIDDEN, m.element_size())
+            rec[str(dtype).replace("torch.", "")] = {
+                "device_ms": device_ms(
+                    lambda: ops.segment_multi_agg(m, valid), "agg_kernel"),
+                "per_call_ms": cuda_ms(
+                    lambda: ops.segment_multi_agg(m, valid), 20),
+                "plain_ms": cuda_ms(lambda: ref.segment_multi_agg_ref(
+                    m.to(torch.float32), valid), 3),
+                "bytes": need, "bound_ms": need / PEAK_BYTES * 1e3}
+            del m
+        del bucketed, valid
+        records[name] = rec
+        log(f"phase 5: {name} messages E={dst.shape[0]} within tolerance "
+            f"in fp32 and bf16, max/min == scatter oracle; "
+            + json.dumps(rec))
+    torch.cuda.empty_cache()
 
-    # bytes the kernel must move: valid, the valid slots' messages, 4 outputs
-    out_bytes = 4 * N * PNA_D_HIDDEN * 4
-    need = valid.numel() + n_valid * PNA_D_HIDDEN * 4 + out_bytes
-    whole = valid.numel() + bucketed.numel() * 4 + out_bytes
-    log(f"phase 5: bytes needed {need} (whole bucketed tensor {whole})")
-    del bucketed, valid
+    for dtype in AGG_TOL:
+        for D in (PNA_D_HIDDEN, 96):       # lane columns idle, and not
+            max_err = max(max_err, agg_nan_check(ops, ref, dtype, D, gen,
+                                                 dev))
+    log("phase 5: a NaN of a valid slot reaches all four outputs, one of "
+        "an invalid slot neither max nor min (fp32 and bf16, D = 75 and 96)")
 
     reset_launches(ops)
-    b, v = ops.bucketize_messages(dst, msg_e, N)          # the main path
-    mean, mx, mn, std = ops.segment_multi_agg(b, v)
+    outs = {}
+    for name, (dst, msg_e, N) in cases.items():           # the main path
+        outs[name] = ops.segment_multi_agg(*ops.bucketize_messages(
+            dst, msg_e, N))
     launches = ops.segment_multi_agg.launches
-    want_mean, want_max, want_min = scatter_aggregates(dst, msg_e, N)
-    check(torch.allclose(mean, want_mean, rtol=1e-5, atol=1e-6)
-          and torch.equal(mx, want_max) and torch.equal(mn, want_min),
-          "segment aggregation differs from the scatter oracle")
-    check(bool(torch.isfinite(std).all()) and tuple(std.shape) == (
-        N, PNA_D_HIDDEN), "segment aggregation std not finite or misshapen")
+    for name, (dst, msg_e, N) in cases.items():
+        scatter_check(outs[name], dst, msg_e, N, f"{name}, main path")
+        std = outs[name][3]
+        check(bool(torch.isfinite(std).all()) and tuple(std.shape) == (
+            N, PNA_D_HIDDEN), f"segment aggregation std not finite or "
+                              f"misshapen ({name})")
     log(f"phase 5: main path bucketize + segment_multi_agg == scatter "
-        f"oracle; segment_multi_agg launches {launches}")
+        f"oracle at both SNB shapes; segment_multi_agg launches {launches}")
+    del outs, cases
     torch.cuda.empty_cache()
+    head = records["SNB x10"]["float32"]
     return {"max_abs_err": max_err, "launches": launches,
-            "ms": timings["float32"]["ms"],
-            "plain_ms": timings["float32"]["plain_ms"],
-            "bound_ms": need / PEAK_BYTES * 1e3, "bound_by": "bytes",
-            "library_ms": None}
+            "ms": head["device_ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "per_call_ms": head["per_call_ms"]}
 
 
 # ---------------------------------------------------------------------------
@@ -699,6 +841,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/segment_agg.cu",
         "replaces": "src/repro/kernels/segment_agg.py:44",
         **{k: agg[k] for k in keys}, "checked": True,
+        "per_call_ms": agg["per_call_ms"],
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

@@ -42,24 +42,30 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def compile_source(src: Path, out: Path) -> str:
+    """Compile the CUDA source ``src`` into the shared library ``out`` with
+    the port's flags; returns the compiler's ``-Xptxas -v`` report."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+           "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+           "-o", str(tmp), str(src)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src.name}:\n{proc.stderr}")
+    os.replace(tmp, out)      # atomic: concurrent builders never see half a file
+    return proc.stderr
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless this exact source is built already."""
     out = library_path(name)
     if out.exists():
         build_log.setdefault(name, {"seconds": 0.0, "ptxas": ""})
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp), str(CSRC / f"{name}.cu")]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
-    os.replace(tmp, out)      # atomic: concurrent builders never see half a file
-    build_log[name] = {"seconds": time.perf_counter() - t0,
-                       "ptxas": proc.stderr}
+    ptxas = compile_source(CSRC / f"{name}.cu", out)
+    build_log[name] = {"seconds": time.perf_counter() - t0, "ptxas": ptxas}
     return out
 
 

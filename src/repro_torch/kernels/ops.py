@@ -219,9 +219,13 @@ def segment_multi_agg(msg: torch.Tensor, valid: torch.Tensor, *,
     """Fused (mean, max, min, std) over bucketed neighbour messages.
 
     msg: [N, W, D] float32 or bfloat16, valid: [N, W] bool or uint8.
-    Returns four float32 [N, D] tensors; ``std = sqrt(max(E[x²] - mean²,
-    0) + eps)`` and rows with no valid slot give 0.  Ragged N and D need
-    no padding.
+    Returns four float32 [N, D] tensors, views of one [4, N, D] tensor;
+    ``std = sqrt(max(E[x²] - mean², 0) + eps)`` and rows with no valid slot
+    give 0.  A NaN of a valid slot reaches all four outputs of its column.
+    Invalid slots must hold finite values, as ``bucketize_messages`` leaves
+    them: the kernel never reads them, while the reference (and the plain
+    version on the CPU) multiplies them by 0 for the mean and std.  Ragged
+    N and D need no padding.
     """
     if msg.dim() != 3 or valid.dim() != 2 or \
             tuple(valid.shape) != tuple(msg.shape[:2]):
@@ -244,15 +248,16 @@ def segment_multi_agg(msg: torch.Tensor, valid: torch.Tensor, *,
     if not (msg.is_contiguous() and valid.is_contiguous()):
         raise ValueError("segment_multi_agg needs contiguous msg and valid")
     N, W, D = msg.shape
-    outs = [torch.empty((N, D), dtype=torch.float32, device=dev)
-            for _ in range(4)]
+    out = torch.empty((4, N, D), dtype=torch.float32, device=dev)
+    ptr, step = out.data_ptr(), N * D * 4
     rc = _agg_fn()(
-        msg.data_ptr(), _FLOAT_DT[msg.dtype], valid.data_ptr(),
-        *[o.data_ptr() for o in outs], N, W, D, eps, _stream(dev))
+        msg.data_ptr(), _FLOAT_DT[msg.dtype], valid.data_ptr(), ptr,
+        ptr + step, ptr + 2 * step, ptr + 3 * step, N, W, D, eps,
+        _stream(dev))
     if rc != 0:
         raise RuntimeError(f"segment_multi_agg launch failed: CUDA error {rc}")
     segment_multi_agg.launches += 1
-    return tuple(outs)
+    return out.unbind(0)
 
 
 segment_multi_agg.launches = 0

@@ -187,3 +187,43 @@ def test_chip_smoke_kernel_phases_rehearse_on_cpu():
     assert pairs == 18 and bound_by == "bytes"
     assert bound_ms == max(4.0 * 8 * pairs / smoke.PEAK_FP32_FLOPS,
                            (2 * 32 + 2 * 48) * 4 / smoke.PEAK_BYTES) * 1e3
+
+
+def test_chip_smoke_segment_phase_rehearses_on_cpu():
+    """Phase 5's helpers on the host, at a tiny scale: the unit inputs
+    (rows all valid and empty), the kernel-vs-plain check at every unit
+    shape, the NaN cases, the scatter oracle at both dtypes on a tiny SNB
+    graph, and the bytes that set the bound at both SNB shapes (the counts
+    of the full-size graphs: N, W and valid slots)."""
+    import importlib.util
+
+    from repro_torch.kernels import ops, ref
+    spec = importlib.util.spec_from_file_location("chip_smoke", SMOKE)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    gen = torch.Generator().manual_seed(0)
+    for shape in smoke.AGG_UNIT_SHAPES:
+        for dtype in smoke.AGG_TOL:
+            msg, valid = smoke.agg_inputs(shape, dtype, gen, "cpu")
+            assert msg.dtype == dtype and bool(valid[0].all())
+            assert not bool(valid[1:3].any())
+            smoke.agg_check(ops, ref, msg, valid, f"{shape} {dtype}")
+    for dtype in smoke.AGG_TOL:
+        for D in (75, 96):
+            assert smoke.agg_nan_check(ops, ref, dtype, D, gen, "cpu") == 0.0
+
+    dst, msg_e, N = smoke.snb_messages(gen, "cpu", n_person=40, n_post=30,
+                                       n_comment=240, n_place=6, n_tag=30)
+    bucketed, valid = ops.bucketize_messages(dst, msg_e, N)
+    for dtype in smoke.AGG_TOL:
+        outs = ops.segment_multi_agg(bucketed.to(dtype), valid)
+        smoke.scatter_check(outs, dst, msg_e.to(dtype), N, str(dtype))
+    with pytest.raises(AssertionError):
+        outs = list(ops.segment_multi_agg(bucketed, valid))
+        outs[1] = outs[1].nextafter(torch.tensor(torch.inf))
+        smoke.scatter_check(outs, dst, msg_e, N, "max one step up")
+    for (n, w, e), need in (((15860, 45, 44698), 33155100),
+                            ((158600, 53, 445845), 332479300)):
+        v = torch.empty((n, w), dtype=torch.bool)
+        assert smoke.agg_bytes(v, e, smoke.PNA_D_HIDDEN, 4) == need
+    assert smoke.SNB_X10["n_comment"] == 10 * 12000

@@ -18,6 +18,10 @@ from repro_torch.kernels import ops as p_ops
 from repro_torch.kernels import ref as p_ref
 
 SHAPES = [(16, 4, 8), (64, 16, 128), (33, 7, 75)]
+# W > 64, W = 1 and two slot chunks, N not a multiple of the kernel's 8 rows
+# a block; D = 96 fills every lane's columns, 75 leaves some idle, 300 and
+# 333 take several column chunks of 128
+EDGE_SHAPES = [(257, 70, 96), (9, 1, 75), (50, 33, 333), (40, 40, 300)]
 DTYPES = {"float32": (torch.float32, 1e-5),
           "bfloat16": (torch.bfloat16, 2e-2)}
 
@@ -38,6 +42,27 @@ def _inputs(shape, seed):
     rng = np.random.default_rng(seed)
     return (rng.standard_normal((N, W, D)).astype(np.float32),
             rng.random((N, W)) < 0.7)
+
+
+def _edge_inputs(shape, seed):
+    """Like ``_inputs``, with row 0 all valid and rows 1-2 (where they
+    exist) empty."""
+    msg, valid = _inputs(shape, seed)
+    valid[0] = True
+    valid[1:3] = False
+    return msg, valid
+
+
+def _nan_inputs(D, seed=5):
+    """[24, 40, D] messages with a NaN in a valid slot before finite values
+    (row 0, column 3), one in the last valid slot after them (row 1,
+    column 5) and one in an invalid slot (row 2, column 7)."""
+    msg, valid = _edge_inputs((24, 40, D), seed)
+    valid[0:2, :6] = True
+    valid[1, 6:] = False
+    valid[2, 9], valid[2, 10] = False, True
+    msg[0, 0, 3] = msg[1, 5, 5] = msg[2, 9, 7] = np.nan
+    return msg, valid
 
 
 def _edges(seed, E=200, N=32, D=16):
@@ -68,6 +93,62 @@ def test_segment_multi_agg_matches_reference(R, shape, dtype):
                                    atol=tol)
         np.testing.assert_allclose(g.numpy(), np.asarray(o), rtol=tol,
                                    atol=tol)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
+def test_segment_multi_agg_edge_shapes_match_reference(R, shape, dtype):
+    """All four outputs against the reference kernel; mean, max and min
+    also against its oracle.  The oracle takes meansq - mean² with two
+    roundings, and rows of one valid slot (all of them at W = 1) magnify
+    that in the std (``test_segment_agg_std_rounds_like_the_reference_
+    kernel``), so the std is held to the kernel alone."""
+    msg, valid = _edge_inputs(shape, 17)
+    tdt, tol = DTYPES[dtype]
+    got = p_ops.segment_multi_agg(torch.from_numpy(msg).to(tdt),
+                                  torch.from_numpy(valid))
+    jmsg = R.jnp.asarray(msg, R.dtype[tdt])
+    kernel = R.ops.segment_multi_agg(jmsg, R.jnp.asarray(valid))
+    oracle = R.ref.segment_multi_agg_ref(jmsg.astype(R.jnp.float32),
+                                         R.jnp.asarray(valid))
+    for i, (g, k, o) in enumerate(zip(got, kernel, oracle)):
+        assert tuple(g.shape) == (shape[0], shape[2])
+        np.testing.assert_allclose(g.numpy(), np.asarray(k), rtol=tol,
+                                   atol=tol)
+        if i < 3:
+            np.testing.assert_allclose(g.numpy(), np.asarray(o), rtol=tol,
+                                       atol=tol)
+    for out in got:                       # rows 1-2 hold no valid slot
+        assert not out[1:3].any()
+
+
+@pytest.mark.parametrize("D", [75, 96])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_segment_agg_nan_matches_reference(R, dtype, D):
+    """A NaN of a valid slot, before or after finite values, makes all four
+    outputs of its column NaN in the reference (``jnp.max``/``jnp.min``
+    propagate it) and in the port.  A NaN of an invalid slot stays out of
+    max and min in both.  Mean and std take the invalid slot times 0, in
+    the reference and in the port's plain version alike (NaN·0); the CUDA
+    kernel never reads it, so it needs invalid slots to be finite."""
+    msg, valid = _nan_inputs(D)
+    tdt, tol = DTYPES[dtype]
+    got = p_ops.segment_multi_agg(torch.from_numpy(msg).to(tdt),
+                                  torch.from_numpy(valid))
+    jmsg = R.jnp.asarray(msg, R.dtype[tdt])
+    kernel = [np.asarray(k) for k in
+              R.ops.segment_multi_agg(jmsg, R.jnp.asarray(valid))]
+    oracle = [np.asarray(o) for o in R.ref.segment_multi_agg_ref(
+        jmsg.astype(R.jnp.float32), R.jnp.asarray(valid))]
+    for i, (g, k, o) in enumerate(zip(got, kernel, oracle)):
+        g = g.numpy()
+        assert np.isnan(g[0, 3]) and np.isnan(g[1, 5])
+        assert np.isnan(k[0, 3]) and np.isnan(k[1, 5])
+        np.testing.assert_allclose(g, k, rtol=tol, atol=tol)
+        if i < 3:
+            np.testing.assert_allclose(g, o, rtol=tol, atol=tol)
+        if i in (1, 2):                   # max and min
+            assert np.isfinite(g[2]).all() and np.isfinite(k[2]).all()
 
 
 def test_segment_agg_std_rounds_like_the_reference_kernel(R):
@@ -181,6 +262,25 @@ def test_cpu_tensors_never_count_kernel_launches():
     assert p_ops.segment_multi_agg.launches == before
 
 
+def _cuda_matches_plain(device, msg, valid, dtype, equal_nan=False,
+                        rows=slice(None)):
+    """One launch of the kernel, held to the plain version on the card: max
+    and min in every row, mean and std in ``rows``."""
+    tdt, tol = DTYPES[dtype]
+    m = msg.to(device, tdt)
+    v = valid.to(device)
+    before = p_ops.segment_multi_agg.launches
+    got = p_ops.segment_multi_agg(m, v)
+    assert p_ops.segment_multi_agg.launches == before + 1
+    want = p_ref.segment_multi_agg_ref(m.to(torch.float32), v)
+    for i, (g, w) in enumerate(zip(got, want)):
+        if i in (0, 3):                   # mean and std
+            g, w = g[rows], w[rows]
+        torch.testing.assert_close(g, w, rtol=tol, atol=tol,
+                                   equal_nan=equal_nan)
+    return got
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -193,15 +293,38 @@ def cuda_device():
 @pytest.mark.parametrize("shape", SHAPES + [(1000, 45, 75)])
 def test_cuda_kernel_matches_plain(cuda_device, shape, dtype):
     msg, valid = _inputs(shape, 7)
-    tdt, tol = DTYPES[dtype]
-    m = torch.from_numpy(msg).to(cuda_device, tdt)
-    v = torch.from_numpy(valid).to(cuda_device)
-    before = p_ops.segment_multi_agg.launches
-    got = p_ops.segment_multi_agg(m, v)
-    assert p_ops.segment_multi_agg.launches == before + 1
-    want = p_ref.segment_multi_agg_ref(m.to(torch.float32), v)
-    for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+    _cuda_matches_plain(cuda_device, torch.from_numpy(msg),
+                        torch.from_numpy(valid), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
+def test_cuda_edge_shapes_match_plain(cuda_device, shape, dtype):
+    msg, valid = _edge_inputs(shape, 7)
+    got = _cuda_matches_plain(cuda_device, torch.from_numpy(msg),
+                              torch.from_numpy(valid), dtype)
+    for out in got:
+        assert not out[1:3].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [75, 96])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cuda_nan_matches_plain(cuda_device, dtype, D):
+    """The reference's NaN max and min, on the card: a NaN of a valid slot
+    reaches all four outputs of its column, one of an invalid slot (row 2)
+    neither max nor min.  Row 2's mean and std are not compared: the plain
+    version takes the invalid slot times 0, as the reference does, and the
+    kernel never reads it (invalid slots must be finite)."""
+    msg, valid = _nan_inputs(D)
+    got = _cuda_matches_plain(cuda_device, torch.from_numpy(msg),
+                              torch.from_numpy(valid), dtype, equal_nan=True,
+                              rows=torch.arange(24, device=cuda_device) != 2)
+    for i, out in enumerate(got):
+        assert bool(out[0, 3].isnan()) and bool(out[1, 5].isnan())
+        if i in (1, 2):
+            assert bool(out[2].isfinite().all())
 
 
 @pytest.mark.cuda
