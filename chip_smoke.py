@@ -34,11 +34,20 @@ Phases:
      reference's test shapes (fp32), at decode shapes that split over keys
      (bf16 and fp32) and at starcoder2-3b and gemma-2b shapes (bf16), timed
      beside ``scaled_dot_product_attention``; then its main path, the
-     three model shapes once more.
+     three model shapes once more;
+  7. serving, after phase 4's sessions are freed: (a) SNB through
+     ``GraphSession.serve`` with the workload driver's serve script (each
+     read unbound and for 16 clients bound to one start node, a fence a
+     round, 2 rounds), every ticket equal to a sequential twin's
+     ``query``/``apply_writes`` replay; (b) the same on FinBench with the
+     served session's dense hops on ``block_spmm`` against a segment-hop
+     twin; (c) online view selection on SNB against a views-off engine (6
+     rounds).
 
 Each kernel's launch count is zeroed just before its main path and read
-just after it: phases 3-4 for ``block_spmm``, the ends of phases 5 and 6
-for the others (comparison launches do not count).  ``block_spmm`` and
+just after it: phases 3-4 and the serve run of 7b for ``block_spmm``, the
+ends of phases 5 and 6 for the others (comparison launches do not
+count).  ``block_spmm`` and
 ``flash_attention`` also count launches by route: ``tc`` (tensor cores)
 and ``fp32`` (CUDA cores).  Every failed check raises, so the script exits
 non-zero and prints no result line.  It needs one CUDA device; without one
@@ -46,6 +55,7 @@ it exits with code 2.
 """
 from __future__ import annotations
 
+import gc
 import json
 import re
 import subprocess
@@ -66,6 +76,9 @@ PEAK_BYTES = 3.35e12
 
 UNIT_SHAPES = [(8, 16, 12), (128, 128, 128), (100, 200, 150), (256, 384, 128)]
 WORKLOAD_SHAPE = (256, 27264, 27264)   # src_block x node_cap x node_cap
+# frontier rows of the serve path's adaptive blocks (8, 16, ..., 256) at
+# the FinBench shape: checked exactly at these rungs, timed at 8 and 256
+SERVE_ROWS = (8, 16, 64)
 
 # segment_multi_agg: the reference's test shapes [N, W, D], then W > 64,
 # W = 1 and two slot chunks, with N not a multiple of the kernel's 8 rows a
@@ -105,6 +118,15 @@ ATTN_MODEL_SHAPES = {
 # (2^-8 to 2^-7 of its magnitude) and no more; a diagonal shifted by one
 # key at the decode shape moves outputs by several steps.
 ATTN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2 ** -7, 1e-4)}
+
+# phase 7: the workload driver's serve script (clients bound to one random
+# start node each, one fence a round) and the online bench's rounds, cut
+# from 12 to 6 to keep the smoke well under 600 s (12 rounds took 197 s of
+# a 538 s smoke on an NVIDIA H100 80GB HBM3 at 700 W); the selector still
+# evaluates twice, after rounds 3 and 6
+SERVE_CLIENTS = 16
+SERVE_ROUNDS = 2
+ONLINE_ROUNDS = 6
 
 
 def log(msg: str) -> None:
@@ -293,12 +315,39 @@ def spmm_checks(ops, ref) -> dict:
         f"mask/no mask; ms: " + json.dumps(timings)
         + f"; torch.matmul fp32 {library_ms:.3f} ms")
     bound_ms, bound_by = spmm_bound_ms(S, K, N)
-    del A, F, Ff, Af, wide
+    by_rows = {S: {"ms": timings["count"]["ms"],
+                   "plain_ms": timings["count"]["plain_ms"],
+                   "bound_ms": bound_ms, "bound_by": bound_by}}
+    for rows in SERVE_ROWS:             # the serve path's small frontiers
+        Fs = torch.randint(0, 3, (rows, K), generator=gen, device=dev,
+                           dtype=torch.int32)
+        for counting in (True, False):
+            for m in (None, mask):
+                semiring = "count" if counting else "bool"
+                got = ops.block_spmm(Fs, A, m, counting=counting,
+                                     out_dtype=torch.int32 if counting
+                                     else torch.uint8)
+                want = ref.block_spmm_ref(Fs, A, m, semiring=semiring)
+                torch.cuda.synchronize()
+                err = float((got.to(torch.float32) - want).abs().max())
+                max_err = max(max_err, err)
+                check(err == 0.0, f"block_spmm != plain at S={rows} "
+                                  f"({semiring}, mask={m is not None}): {err}")
+        if rows == SERVE_ROWS[0]:
+            b_ms, b_by = spmm_bound_ms(rows, K, N)
+            by_rows[rows] = {
+                "ms": cuda_ms(lambda: ops.block_spmm(
+                    Fs, A, counting=True, out_dtype=torch.int32), 5),
+                "plain_ms": cuda_ms(lambda: ref.block_spmm_ref(Fs, A), 5),
+                "bound_ms": b_ms, "bound_by": b_by}
+    log(f"phase 2: S = {list(SERVE_ROWS)} at K = N = {K} exact in count/bool "
+        f"x mask/no mask; count hop by S: " + json.dumps(by_rows))
+    del A, F, Ff, Af, Fs, wide
     torch.cuda.empty_cache()
     return {"max_abs_err": max_err, "ms": timings["count"]["ms"],
             "plain_ms": timings["count"]["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
-            "timings": timings}
+            "timings": timings, "by_rows": by_rows}
 
 
 # ---------------------------------------------------------------------------
@@ -417,6 +466,196 @@ def finbench_phase(scale: float = 1.0, device: str = "cuda") -> dict:
     reads(True, "after writes")
     return {"max_memory_allocated": (torch.cuda.max_memory_allocated()
                                      if device == "cuda" else None)}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the serve engine and online view selection
+# ---------------------------------------------------------------------------
+
+def serve_script(sess, wl, clients: int, rounds: int, rng) -> list:
+    """The workload driver's serve replay as an op list: per round, every
+    read once unbound plus once per client bound to a random node of its
+    start label, then one fence that deletes and re-creates a random base
+    edge.  Targets come from the initial graph, so the list replays
+    identically on a twin session."""
+    from repro_torch.core import WriteBatch, parse_query
+    from repro_torch.utils import host
+    g = sess.g
+    parsed = {q: parse_query(q) for q in wl.reads}
+    n_alive = np.flatnonzero(host(g.node_alive))
+    pools = {}
+    for q in wl.reads:
+        label = parsed[q].path.start.label
+        if label not in pools:
+            ids = np.flatnonzero(host(g.node_mask(
+                sess.schema.node_label_id(label))))
+            pools[label] = ids if ids.size else n_alive
+    alive_e = np.flatnonzero(host(g.edge_alive))
+    e_lab, e_src, e_dst = host(g.edge_label), host(g.edge_src), host(g.edge_dst)
+    view_lids = [v.label_id for v in sess.views.values()]
+    base_e = alive_e[~np.isin(e_lab[alive_e], view_lids)]
+    fence_eids = rng.choice(base_e, size=rounds, replace=False)
+    ops = []
+    for r in range(rounds):
+        for q in wl.reads:
+            ops.append(("read", parsed[q], None))
+            pool = pools[parsed[q].path.start.label]
+            for _ in range(clients):
+                ops.append(("read", parsed[q],
+                            np.asarray([int(rng.choice(pool))], np.int32)))
+        eid = int(fence_eids[r])
+        label = sess.schema.edge_labels.name_of(int(e_lab[eid]))
+        ops.append(("write", WriteBatch(edge_deletes=[eid]).create_edge(
+            int(e_src[eid]), int(e_dst[eid]), label), None))
+    return ops
+
+
+def served_vs_sequential(served, twin, ops, what: str, kops=None) -> dict:
+    """Submit ``ops`` to an engine of ``served`` and run it; replay them on
+    ``twin`` with ``query``/``apply_writes`` in order, holding every
+    ticket's source ids, rows and DBHit/Rows to the twin's.  With ``kops``
+    (the kernel wrappers), the kernels' counts are zeroed just before the
+    serve run and read just after it."""
+    eng = served.serve()
+    if kops is not None:
+        reset_launches(kops)
+        kops.spmm_slow_slabs(served.device).zero_()
+    t0 = time.perf_counter()
+    tickets = [eng.submit(p, sources=src) if kind == "read"
+               else eng.submit_writes(p) for kind, p, src in ops]
+    st = eng.run()
+    serve_s = time.perf_counter() - t0
+    rec = {}
+    if kops is not None:
+        rec.update(launches=kops.block_spmm.launches,
+                   launches_by_route=dict(kops.block_spmm.launches_by_route),
+                   slow_slabs=int(kops.spmm_slow_slabs(served.device)),
+                   slabs=kops.block_spmm.slabs)
+    seq_s = seq_read_s = 0.0
+    for t, (kind, payload, src) in zip(tickets, ops):
+        t0 = time.perf_counter()
+        if kind == "write":
+            twin.apply_writes(payload)
+            seq_s += time.perf_counter() - t0
+            continue
+        want = twin.query(payload, sources=src)
+        dt = time.perf_counter() - t0
+        seq_s, seq_read_s = seq_s + dt, seq_read_s + dt
+        got = t.result
+        check(np.array_equal(got.src_ids, want.src_ids)
+              and np.array_equal(got.reach, want.reach)
+              and got.metrics == want.metrics,
+              f"{what}: ticket {t.uid} ({t.via}) differs from the sequential "
+              f"twin ({got.metrics} vs {want.metrics})")
+        t.result = None                  # free its rows
+    check_views(served, f"{what} after serving")
+    n = st.queries
+    rec.update(summary=st.summary(), queries=n, windows=st.windows,
+               executions=st.executions, groups=st.groups,
+               share_rate=st.share_rate, memo_hits=st.memo_hits,
+               gathers=st.gathers, hoisted=st.hoisted, fences=st.write_batches,
+               block_sizes={str(k): st.block_sizes.count(k)
+                            for k in sorted(set(st.block_sizes))},
+               serve_s=serve_s, sequential_s=seq_s,
+               serve_s_per_query=serve_s / max(n, 1),
+               sequential_read_s_per_query=seq_read_s / max(n, 1))
+    return rec
+
+
+def serve_snb(scale: float = 1.0, device: str = "cuda",
+              clients: int = SERVE_CLIENTS, rounds: int = SERVE_ROUNDS):
+    """7a: SNB through the serve engine (all-segment plans: shared
+    structural programs, no kernel) against a sequential twin."""
+    from repro_torch.configs.mv4pg import SNB_WORKLOAD as WL
+    from repro_torch.core import GraphSession
+    from repro_torch.data.synthetic import snb_like
+    served, twin = (GraphSession(*snb_like(
+        seed=0, n_person=int(2000 * scale), n_post=int(1500 * scale),
+        n_comment=int(12000 * scale), device=device)[:2], device=device)
+        for _ in range(2))
+    for v in WL.views:
+        served.create_view(v)
+        twin.create_view(v)
+    ops = serve_script(served, WL, clients, rounds, np.random.default_rng(0))
+    return served_vs_sequential(served, twin, ops, "SNB serve")
+
+
+def serve_finbench(kops=None, scale: float = 1.0, device: str = "cuda",
+                   clients: int = SERVE_CLIENTS, rounds: int = SERVE_ROUNDS):
+    """7b: FinBench served by a kernel session (dense hops on
+    ``block_spmm``) against a segment-hop twin."""
+    from repro_torch.configs.mv4pg import FINBENCH_WORKLOAD as WL
+    from repro_torch.core import ExecConfig, GraphSession
+    from repro_torch.data.synthetic import finbench_like
+    served, twin = (GraphSession(*finbench_like(
+        seed=0, n_account=int(4000 * scale), n_person=int(1500 * scale),
+        n_company=int(500 * scale), n_loan=int(800 * scale),
+        device=device)[:2], cfg, device=device)
+        for cfg in (ExecConfig(backend="dense", use_kernel=True),
+                    ExecConfig()))
+    for v in WL.views:
+        served.create_view(v)
+        twin.create_view(v)
+    ops = serve_script(served, WL, clients, rounds, np.random.default_rng(0))
+    return served_vs_sequential(served, twin, ops, "FinBench serve", kops)
+
+
+def online_phase(scale: float = 1.0, device: str = "cuda",
+                 rounds: int = ONLINE_ROUNDS) -> dict:
+    """7c: online view selection on SNB, after the online bench: the three
+    view-shaped reads twice each per round and a replyOf and a knows write,
+    into an engine with online selection beside a views-off engine; the
+    pair counts must agree every round."""
+    from repro_torch.configs.mv4pg import SNB_WORKLOAD as WL
+    from repro_torch.core import GraphSession, WriteBatch
+    from repro_torch.core.online_selection import OnlineSelectionConfig
+    from repro_torch.data.synthetic import snb_like
+    from repro_torch.serve import ServeConfig
+    from repro_torch.utils import host
+    sizes = dict(seed=0, n_person=int(2000 * scale), n_post=int(1500 * scale),
+                 n_comment=int(12000 * scale), device=device)
+    auto = GraphSession(*snb_like(**sizes)[:2], device=device)
+    plain = GraphSession(*snb_like(**sizes)[:2], auto_optimize=False,
+                         device=device)
+    engines = {"auto": auto.serve(ServeConfig(
+        online_selection=OnlineSelectionConfig(
+            min_observations=12, evaluate_every=18, min_uses=2.0,
+            max_views=3))), "plain": plain.serve(ServeConfig())}
+    hot = [WL.reads[0], WL.reads[4], WL.reads[2]]
+    ids = {lbl: np.flatnonzero(host(auto.g.node_mask(
+        auto.schema.node_label_id(lbl)))) for lbl in ("Person", "Comment",
+                                                       "Post")}
+    rng = np.random.default_rng(0)
+    seconds = dict.fromkeys(engines, 0.0)
+    for r in range(rounds):
+        c, p = (int(rng.choice(ids[k])) for k in ("Comment", "Post"))
+        a, b = (int(rng.choice(ids["Person"])) for _ in range(2))
+        pairs = {}
+        for name, eng in engines.items():
+            t0 = time.perf_counter()
+            tickets = []
+            for q in hot:
+                tickets.append(eng.submit(q))
+                eng.submit(q)            # same-fingerprint repeat
+            eng.submit_writes(WriteBatch().create_edge(c, p, "replyOf")
+                              .create_edge(a, b, "knows"))
+            eng.run()
+            seconds[name] += time.perf_counter() - t0
+            pairs[name] = [t.result.num_pairs() for t in tickets]
+        check(pairs["auto"] == pairs["plain"],
+              f"online selection round {r}: pairs {pairs}")
+    sel = engines["auto"].selector
+    check(sel.stats.creates >= 1, "online selection created no view")
+    owned = sorted(sel.owned_views())
+    for name in owned:
+        check(auto.check_consistency(name), f"owned view {name} inconsistent")
+    return {"rounds": rounds, "creates": sel.stats.creates,
+            "drops": sel.stats.drops, "reused_builds": sel.stats.reused_builds,
+            "evaluations": sel.stats.evaluations, "owned": owned,
+            "actions": sel.stats.actions, "select_s": sel.stats.select_seconds,
+            "create_s": sel.stats.create_seconds,
+            "auto_s": seconds["auto"], "plain_s": seconds["plain"],
+            "summary": engines["auto"].stats.summary()}
 
 
 # ---------------------------------------------------------------------------
@@ -823,7 +1062,36 @@ def main() -> int:
     attn = attention_phase(ops, ref)
     seconds["attention"] = time.perf_counter() - t0
     check(attn["launches"] > 0, "the main path never launched flash_attention")
+
+    gc.collect()                     # phase 4's sessions and their caches
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    snb_serve = serve_snb()
+    seconds["serve_snb"] = time.perf_counter() - t0
+    log("phase 7a: SNB serve == sequential twin; " + json.dumps(snb_serve))
+    t1 = time.perf_counter()
+    fin_serve = serve_finbench(ops)
+    seconds["serve_finbench"] = time.perf_counter() - t1
+    routes = fin_serve["launches_by_route"]
+    check(fin_serve["launches"] > 0, "FinBench serving never launched "
+                                     "block_spmm")
+    check(routes["tc"] == fin_serve["launches"],
+          f"FinBench serving's block_spmm left the u8 route: {routes}")
+    log(f"phase 7b: FinBench serve through block_spmm == segment twin; "
+        f"u8 slabs on the CUDA cores {fin_serve['slow_slabs']} of "
+        f"{fin_serve['slabs']}; " + json.dumps(fin_serve))
+    t1 = time.perf_counter()
+    online = online_phase()
+    seconds["online_selection"] = time.perf_counter() - t1
+    log("phase 7c: online selection == views-off engine every round; "
+        + json.dumps(online))
+    log(f"phase 7: max_memory_allocated {torch.cuda.max_memory_allocated()} B")
+    seconds["serve"] = time.perf_counter() - t0      # the three above
     log("seconds " + json.dumps(seconds))
+    by_phase = {"snb": snb_launches, "finbench": launches - snb_launches,
+                "serve": fin_serve["launches"]}
+    spmm_routes = {k: v + routes[k] for k, v in spmm_routes.items()}
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
@@ -831,11 +1099,13 @@ def main() -> int:
         "name": "block_spmm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/block_spmm.cu",
         "replaces": "src/repro/kernels/block_spmm.py:46",
-        "launches": launches, "max_abs_err": rec["max_abs_err"],
+        "launches": sum(by_phase.values()), "max_abs_err": rec["max_abs_err"],
         "ms": rec["ms"], "plain_ms": rec["plain_ms"],
         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
         "library_ms": rec["library_ms"], "checked": True,
-        "launches_by_route": spmm_routes, "slow_slabs": slow_slabs,
+        "launches_by_route": spmm_routes, "launches_by_phase": by_phase,
+        "slow_slabs": slow_slabs + fin_serve["slow_slabs"],
+        "ms_by_rows": {k: v["ms"] for k, v in rec["by_rows"].items()},
     }, {
         "name": "segment_multi_agg", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/segment_agg.cu",

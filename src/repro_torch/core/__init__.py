@@ -16,13 +16,19 @@ from repro_torch.core.parser import (
 from repro_torch.core.executor import (
     ExecConfig, ExecEngine, Metrics, PairRows, PathExecutor, ReachResult,
 )
-from repro_torch.core.plan import CompiledPlan, QueryPlanner
+from repro_torch.core.plan import (
+    CompiledPlan, QueryPlanner, RowResult, SharedProgram,
+)
 from repro_torch.core.maintenance import ViewTemplates, MaintTemplate
 from repro_torch.core.views import (
     BatchResult, GraphSession, MaterializedView, ViewHandle, ViewStats,
     ViewStatus,
 )
 from repro_torch.core.optimizer import optimize_query
+from repro_torch.core.selection import SelectionStats, select_views
+from repro_torch.core.online_selection import (
+    OnlineSelectionConfig, OnlineSelector,
+)
 
 __all__ = [
     "GraphSchema", "LabelRegistry", "NO_LABEL",
@@ -35,9 +41,11 @@ __all__ = [
     "canonicalize_query", "parse_query", "parse_view", "query_fingerprint",
     "ExecConfig", "ExecEngine", "Metrics", "PairRows", "PathExecutor",
     "ReachResult",
-    "CompiledPlan", "QueryPlanner",
+    "CompiledPlan", "QueryPlanner", "RowResult", "SharedProgram",
     "ViewTemplates", "MaintTemplate",
     "BatchResult", "GraphSession", "MaterializedView", "ViewHandle",
     "ViewStats", "ViewStatus",
     "optimize_query",
+    "SelectionStats", "select_views", "OnlineSelectionConfig",
+    "OnlineSelector",
 ]

@@ -122,6 +122,23 @@ def _hop_segment(F, esrc, edst, emask, eweight, *, counting: bool,
     return hits.index_add_(1, b, msg) > 0
 
 
+def _hop_segment_rows(F, esrc, edst, emask, eweight, *, counting: bool):
+    """Row-parameterized segment hop: every frontier row carries its *own*
+    ``[blk, E]`` edge operands (int64 ``esrc``/``edst``), so rows of
+    different plans of one structural class share one program
+    (:class:`~repro_torch.core.plan.SharedProgram`).  Direction is folded
+    into the operands.  For rows whose operands repeat one plan's slice this
+    is exactly :func:`_hop_segment`: the same gather/scatter targets and
+    integer addends per row."""
+    src_vals = torch.gather(F, 1, esrc)
+    if counting:
+        msg = torch.where(emask, src_vals * eweight, 0)
+        return torch.zeros_like(F).scatter_add_(1, edst, msg)
+    msg = (src_vals & emask).to(torch.int32)
+    hits = torch.zeros(F.shape, dtype=torch.int32, device=F.device)
+    return hits.scatter_add_(1, edst, msg) > 0
+
+
 def _hop_dense(F, A, *, counting: bool):
     """``F @ A`` in fp32 with TF32 off: exact for counts below 2^24."""
     out = matmul_f32(F, A)
@@ -148,6 +165,12 @@ def _hop_cost_per_source(F, deg):
     """Per-frontier-row DBHit vector (int64): 2 storage touches per expanded
     edge.  An exact int64 multiply-sum — CUDA has no integer matmul."""
     return 2 * torch.where(_active(F), deg.to(torch.int64)[None, :], 0).sum(1)
+
+
+def _hop_cost_rows(F, deg_rows):
+    """Per-row DBHit vector with a per-row ``[blk, N]`` degree table: the
+    row-parameterized :func:`_hop_cost_per_source` (same int64 sums)."""
+    return 2 * torch.where(_active(F), deg_rows.to(torch.int64), 0).sum(1)
 
 
 def _hop_cost(F, deg):

@@ -24,6 +24,7 @@ batches — and maintenance evaluates one grouped telescoped delta per
 from __future__ import annotations
 
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Dict, Iterable, List, Optional, Tuple, Union
 
@@ -241,8 +242,10 @@ class GraphSession:
         self.planner = QueryPlanner(self.engine, schema, self.cfg)
         self.view_set_generation = 0
         # freshness bookkeeping: one epoch per applied write batch (the
-        # staleness age unit)
+        # staleness age unit), plus live serve engines to notify at drain/drop
+        # points so they can evict memo entries keyed on refreshed view labels
         self.write_epoch = 0
+        self._serve_engines: "weakref.WeakSet" = weakref.WeakSet()
         self._delta_cfg = ExecConfig(
             backend="segment", src_block=8,
             max_closure_iters=self.cfg.max_closure_iters,
@@ -255,6 +258,8 @@ class GraphSession:
         self._old_exec = PathExecutor(engine=self.engine, cfg=self._delta_cfg)
         self._mid_exec = PathExecutor(engine=self.engine, cfg=self._delta_cfg)
         self._aux_exec = PathExecutor(engine=self.engine, cfg=self._delta_cfg)
+        # lazy persistent selection stats (core/selection.SelectionStats)
+        self._selection_stats = None
 
     # ------------------------------------------------------------- graph
 
@@ -330,8 +335,19 @@ class GraphSession:
         return plan.execute()
 
     def create_view(self, stmt: Union[str, ViewDef], *,
-                    fused: bool = True) -> ViewHandle:
-        """Materialize a view; returns its :class:`ViewHandle`."""
+                    fused: bool = True,
+                    precomputed=None) -> ViewHandle:
+        """Materialize a view; returns its :class:`ViewHandle`.
+
+        ``precomputed`` accepts a selection
+        :class:`~repro_torch.core.selection.Measurement` (anything with a
+        ``result`` — a :class:`~repro_torch.core.executor.ReachResult` of the
+        view's MATCH — and a ``plan`` whose validity scopes it).  While the
+        carried plan is valid, creation installs the already-computed pairs
+        instead of re-executing the match (the selector's measure-once
+        build); a stale or missing measurement falls back to a fresh
+        ``fused``-path execution, with the same result either way.
+        """
         vdef = parse_view(stmt) if isinstance(stmt, str) else stmt
         if vdef.name in self.views:
             raise ValueError(f"view {vdef.name!r} already exists")
@@ -342,7 +358,16 @@ class GraphSession:
                 f"edge label; view labels live in a separate partition")
         t0 = time.perf_counter()
         counting = not any(r.unbounded for r in vdef.match.rels)
-        res = self._materialize_match(vdef, counting, fused=fused)
+        res = None
+        if precomputed is not None:
+            plan = getattr(precomputed, "plan", None)
+            # a build plan is catalog-independent (view_gen None), so
+            # is_valid reduces to label epochs + arena shape: stale exactly
+            # when a base write touched one of the match's labels
+            if plan is not None and plan.is_valid(self.view_set_generation):
+                res = precomputed.result
+        if res is None:
+            res = self._materialize_match(vdef, counting, fused=fused)
         s_ids, d_ids, cnt = res.pairs()
 
         label_id = self.schema.register_view_label(vdef.name)
@@ -389,6 +414,8 @@ class GraphSession:
                             len(view.pair_slot))
         if slots.size:
             self._set_graph(G.delete_edges(self.g, slots), {view.label_id})
+        for eng in list(self._serve_engines):
+            eng._on_view_dropped(view)
 
     # ------------------------------------------------------ view-edge deltas
 
@@ -1043,6 +1070,8 @@ class GraphSession:
         if affected.size:
             self._recompute_sources(view, affected, metrics, ex=self._delta)
         view.stats.e_vl = len(view.pair_slot)
+        for eng in list(self._serve_engines):
+            eng._on_view_drained(view)
         return True
 
     def _drain_over_bound(self, batch: G.WriteBatch, metrics: Metrics) -> None:
@@ -1132,13 +1161,28 @@ class GraphSession:
     # ------------------------------------------------------- view selection
 
     def selection_stats(self):
-        raise NotImplementedError(
-            "view selection is not ported yet (ROADMAP A7)")
+        """The session's persistent :class:`~repro_torch.core.selection.
+        SelectionStats` (lazily built over the session planner): candidate
+        measurements run the fused compiled path and stay memoized across
+        selection rounds, re-validated through their plan's label epochs."""
+        from repro_torch.core.selection import SelectionStats
+        if self._selection_stats is None:
+            self._selection_stats = SelectionStats(self.schema,
+                                                   planner=self.planner)
+        return self._selection_stats
 
     def select_views(self, read_queries, k: int = 3, refresh=None,
                      write_fraction: float = 0.0):
-        raise NotImplementedError(
-            "view selection is not ported yet (ROADMAP A7)")
+        """Workload-driven view selection scored on the session's warm
+        engine via the persistent fused stats store.  ``refresh``/
+        ``write_fraction`` make the Eq. 1 score maintenance-aware
+        (core/selection.py); selected definitions carry the policy."""
+        from repro_torch.core.selection import select_views as _select
+        return _select(self.g, self.schema, read_queries, k=k, cfg=self.cfg,
+                       engine=self.engine,
+                       refresh=refresh or FreshnessPolicy(),
+                       write_fraction=write_fraction,
+                       stats=self.selection_stats())
 
     # -------------------------------------------------------------- queries
 
@@ -1181,8 +1225,12 @@ class GraphSession:
     # ------------------------------------------------------------- serving
 
     def serve(self, config=None):
-        raise NotImplementedError(
-            "the serve engine is not ported yet (ROADMAP A8)")
+        """A :class:`~repro_torch.serve.engine.ServeEngine` bound to this
+        session: continuous-batching reads with label-scoped write fences.
+        ``config`` is an optional :class:`~repro_torch.serve.engine.
+        ServeConfig` of scheduler knobs."""
+        from repro_torch.serve.engine import ServeEngine
+        return ServeEngine(self, config)
 
     # ------------------------------------------------------------ integrity
 

@@ -38,7 +38,8 @@ def test_port_has_the_slice_modules():
                  "core.matcher", "core.optimizer", "graphops.csr",
                  "core.graph", "kernels.ops", "kernels.ref", "kernels.build",
                  "core.executor", "core.plan", "core.maintenance",
-                 "core.views", "data.synthetic", "configs.mv4pg", "interop"):
+                 "core.views", "data.synthetic", "configs.mv4pg", "interop",
+                 "core.selection", "core.online_selection", "serve.engine"):
         assert f"repro_torch.{name}" in mods, name
     for src in ("block_spmm", "segment_agg", "flash_attention"):
         assert (PORT / "kernels" / "csrc" / f"{src}.cu").is_file(), src
@@ -69,6 +70,43 @@ def test_no_file_imports_jax_or_repro(path):
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, \
                 f"{path.relative_to(ROOT)}:{node.lineno} imports {name}"
+
+
+GRAPH_OWNERS = ("g", "graph")
+
+
+def _graph_field(node) -> bool:
+    """Is ``node`` a field of a graph: ``g.<f>``, ``self.g.<f>``,
+    ``sess.g.<f>`` (any ``<x>.g.<f>``) or ``graph.<f>``?"""
+    if not isinstance(node, ast.Attribute):
+        return False
+    owner = node.value
+    if isinstance(owner, ast.Name):
+        return owner.id in GRAPH_OWNERS
+    return isinstance(owner, ast.Attribute) and owner.attr in GRAPH_OWNERS
+
+
+@pytest.mark.parametrize("path", port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_numpy_pull_of_a_graph_field(path):
+    """A graph's fields are device tensors: ``np.asarray``/``np.array`` of
+    one works on the CPU and raises on the card, so every such read goes
+    through ``repro_torch.utils.host``."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call)
+                and isinstance(node.func, ast.Attribute)
+                and node.func.attr in ("asarray", "array")
+                and isinstance(node.func.value, ast.Name)
+                and node.func.value.id in ("np", "numpy")
+                and node.args):
+            arg = node.args[0]
+            inner = arg.func if isinstance(arg, ast.Call) else arg
+            targets = [arg, inner] + ([inner.value] if isinstance(
+                inner, ast.Attribute) else [])
+            assert not any(_graph_field(t) for t in targets), \
+                f"{path.relative_to(ROOT)}:{node.lineno} pulls a graph " \
+                f"field with np.{node.func.attr}"
 
 
 _BLOCKED = """
@@ -131,6 +169,29 @@ def test_chip_smoke_phases_rehearse_on_cpu():
     assert smoke.snb_phase(0.02, device="cpu")["nodes"] > 0
     assert smoke.finbench_phase(0.02, device="cpu") == {
         "max_memory_allocated": None}
+
+
+def test_chip_smoke_serve_phase_rehearses_on_cpu():
+    """Phase 7 at a tiny scale on the host: every serve ticket equal to the
+    sequential twin's answer on SNB and on FinBench with the served
+    session's dense hops on ``block_spmm`` (its plain version here, so no
+    launch is counted), and online selection funding views from measured
+    builds while its reads agree with a views-off engine."""
+    import importlib.util
+
+    from repro_torch.kernels import ops
+    spec = importlib.util.spec_from_file_location("chip_smoke", SMOKE)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    snb = smoke.serve_snb(0.02, "cpu", clients=2, rounds=1)
+    assert snb["queries"] == 7 * 3 and snb["share_rate"] > 0
+    assert snb["gathers"] > 0 and snb["fences"] == 1
+    fin = smoke.serve_finbench(ops, 0.02, "cpu", clients=2, rounds=1)
+    assert fin["queries"] == 7 * 3 and fin["share_rate"] == 0.0
+    assert fin["launches"] == 0 and fin["block_sizes"]
+    online = smoke.online_phase(0.02, "cpu", rounds=4)
+    assert online["creates"] >= 1
+    assert online["reused_builds"] == online["creates"]
 
 
 def test_chip_smoke_kernel_phases_rehearse_on_cpu():

@@ -254,15 +254,17 @@ def test_view_build_paths_and_handles_match_reference():
 
 
 def test_unported_surfaces_name_their_roadmap_item():
+    from repro_torch.core.selection import SelectionStats
+    from repro_torch.serve import ServeEngine
     ps, _ = build(P, 0)
     h = ps.create_view(VIEWS[0])
-    for call, item in ((h.subgraph, "A9"), (h.sampler, "A9"),
-                       (h.to_graphbatch, "A9"), (ps.serve, "A8"),
-                       (ps.selection_stats, "A7")):
-        with pytest.raises(NotImplementedError, match=item):
+    for call in (h.subgraph, h.sampler, h.to_graphbatch):
+        with pytest.raises(NotImplementedError, match="A9"):
             call()
-    with pytest.raises(NotImplementedError, match="A7"):
-        ps.select_views([QUERIES[0]])
+    assert isinstance(ps.serve(), ServeEngine)
+    assert isinstance(ps.selection_stats(), SelectionStats)
+    picked = ps.select_views([QUERIES[2], QUERIES[4]], k=2)
+    assert picked and all(isinstance(v, P.ViewDef) for v in picked)
 
 
 # ---------------------------------------------------------------------------
