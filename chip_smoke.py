@@ -42,12 +42,21 @@ Phases:
      ``query``/``apply_writes`` replay; (b) the same on FinBench with the
      served session's dense hops on ``block_spmm`` against a segment-hop
      twin; (c) online view selection on SNB against a views-off engine (6
-     rounds).
+     rounds);
+  8. the view-fed GNN on SNB: SAGE trains on the ``REFRESH DEFERRED`` view
+     KNOWS2 through ``train_on_view`` (3 epochs, segment path, finite
+     losses); one ``knows`` write rebuilds the maintained CSR once and its
+     batch equals a views-off twin's re-extraction; ``embed_on_view``
+     through ``block_spmm``'s fp32 route over KNOWS2 and ROOT_POST equals
+     the segment path; a ``ViewEmbedder`` behind a ``ServeEngine``
+     answers before and after a ``knows`` fence; then one launch at each
+     view's shape is held to the plain version and timed beside
+     ``torch.matmul``.
 
 Each kernel's launch count is zeroed just before its main path and read
-just after it: phases 3-4 and the serve run of 7b for ``block_spmm``, the
-ends of phases 5 and 6 for the others (comparison launches do not
-count).  ``block_spmm`` and
+just after it: phases 3-4, the serve run of 7b and phase 8's path for
+``block_spmm``, the ends of phases 5 and 6 for the others (comparison
+launches do not count).  ``block_spmm`` and
 ``flash_attention`` also count launches by route: ``tc`` (tensor cores)
 and ``fp32`` (CUDA cores).  Every failed check raises, so the script exits
 non-zero and prints no result line.  It needs one CUDA device; without one
@@ -55,6 +64,7 @@ it exits with code 2.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import re
@@ -127,6 +137,14 @@ ATTN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2 ** -7, 1e-4)}
 SERVE_CLIENTS = 16
 SERVE_ROUNDS = 2
 ONLINE_ROUNDS = 6
+# phase 8: the reference GNN bench's view and policy
+# (benchmarks/run.py::bench_gnn) on full SNB, beside ROOT_POST
+KNOWS2_MATCH = "MATCH (a:Person)-[:knows]->(m:Person)-[:knows]->(b:Person)"
+KNOWS2_DDL = ("CREATE VIEW KNOWS2 AS (CONSTRUCT (a)-[r:KNOWS2]->(b) "
+              + KNOWS2_MATCH + ") REFRESH DEFERRED")
+# (rtol, atol): SAGE through block_spmm against its segment path, the
+# reference's own tolerance for its Pallas path (tests/test_view_gnn.py)
+EMBED_TOL = (2e-4, 2e-4)
 
 
 def log(msg: str) -> None:
@@ -659,6 +677,210 @@ def online_phase(scale: float = 1.0, device: str = "cuda",
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the view-fed GNN
+# ---------------------------------------------------------------------------
+
+def gnn_views(device: str, scale: float):
+    """A session over ``snb_like(seed=0)`` with KNOWS2 (the reference GNN
+    bench's view and policy) and ROOT_POST, and a views-off twin."""
+    from repro_torch import mv4pg as pg
+    from repro_torch.configs.mv4pg import SNB_WORKLOAD as WL
+    from repro_torch.data.synthetic import snb_like
+    sessions = []
+    for views in ((KNOWS2_DDL, WL.views[0]), ()):
+        g, schema, ids = snb_like(
+            seed=0, n_person=int(2000 * scale), n_post=int(1500 * scale),
+            n_comment=int(12000 * scale), device=device)
+        sess = pg.GraphSession(g, schema, device=device)
+        for ddl in views:
+            sess.create_view(ddl)
+        sessions.append(sess)
+    check("ROOT_POST" in sessions[0].views, "SNB_WORKLOAD.views[0] is not "
+                                             "ROOT_POST")
+    return sessions[0], sessions[1], ids["persons"]
+
+
+def knows_write(sess, persons, rng):
+    """One ``knows`` create/delete pair: a new edge between two persons with
+    none, and the deletion of an alive base ``knows`` edge (the same slot
+    in a views-off twin: view edges take slots after the base edges)."""
+    from repro_torch import mv4pg as pg
+    from repro_torch.utils import host
+    g = sess.g
+    lid = sess.schema.edge_labels.id_of("knows")
+    knows = np.flatnonzero(host(g.edge_alive) & (host(g.edge_label) == lid))
+    pairs = set(zip(host(g.edge_src)[knows].tolist(),
+                    host(g.edge_dst)[knows].tolist()))
+    while True:
+        a, b = (int(x) for x in rng.choice(persons, 2, replace=False))
+        if (a, b) not in pairs:
+            break
+    return pg.WriteBatch(edge_creates=[(a, b, "knows")],
+                         edge_deletes=[int(rng.choice(knows))])
+
+
+def twin_batch(twin, device: str):
+    """KNOWS2 re-extracted from scratch: its MATCH on the views-off twin,
+    through the canonical batch builder (``bench_gnn``'s end-state check)."""
+    from repro_torch.graphops.view_subgraph import build_graphbatch
+    from repro_torch.utils import host
+    rows = twin.query(KNOWS2_MATCH, use_views=False).pairs()
+    return build_graphbatch(
+        rows.src.astype(np.int64), rows.dst.astype(np.int64),
+        node_label=host(twin.g.node_label), num_nodes=int(twin.g.node_cap),
+        weight=rows.count.astype(np.int64), device=device)
+
+
+def within(got: np.ndarray, want: np.ndarray, rtol: float, atol: float,
+            what: str) -> float:
+    """Check ``got`` against ``want`` within (rtol, atol); the largest
+    absolute difference."""
+    check(got.shape == want.shape and np.isfinite(got).all(),
+          f"{what}: shape {got.shape} vs {want.shape} or not finite")
+    err = np.abs(got.astype(np.float64) - want)
+    bad = int((err > atol + rtol * np.abs(want)).sum())
+    check(bad == 0, f"{what}: {bad} values outside (rtol {rtol}, atol "
+                    f"{atol}), max abs err {err.max()}")
+    return float(err.max()) if err.size else 0.0
+
+
+def sage_spmm_operands(sess, view: str, params):
+    """``block_spmm``'s operands in the first layer of SAGE's aggregation
+    over ``view``'s maintained subgraph: the dense fp32 adjacency and the
+    encoded features ``h``."""
+    from repro_torch.models.common import dense
+    from repro_torch.models.gnn.sage import dense_adjacency
+    batch = sess.view(view).subgraph().to_graphbatch()
+    with torch.no_grad():
+        h = torch.relu(dense(params["enc"], batch.node_feat))
+        h = (h * batch.node_mask[:, None]).contiguous()
+    return dense_adjacency(batch), h
+
+
+def spmm_fp32_bound_ms(S: int, K: int, N: int) -> tuple:
+    """The least time of the fp32 product: the larger of 2·S·K·N over the
+    card's fp32 peak outside the tensor cores and fp32 F, A and out moved
+    once over the memory rate."""
+    t_ops = 2.0 * S * K * N / PEAK_FP32_FLOPS
+    t_bytes = 4.0 * (S * K + K * N + S * N) / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def spmm_fp32_check(ops, ref, adj, h, what: str) -> dict:
+    """One ``block_spmm`` launch on its fp32 route against the plain
+    version; timed beside it and ``torch.matmul`` (TF32 off) on the card."""
+    S, K = adj.shape
+    N = h.shape[1]
+    got = ops.block_spmm(adj, h, counting=True, out_dtype=torch.float32)
+    want = ref.block_spmm_ref(adj, h)
+    # Both sum the same k nonzero products of nonnegative fp32 values (an
+    # adjacency row, relu outputs) in another order.  Any order of such a
+    # sum lies within k·2^-24 of the exact one, relative to it, so the two
+    # differ by at most 2k·2^-24 of the output; zero terms add exactly.
+    k = int(adj.count_nonzero(dim=1).max()) if S else 0
+    tol = (2 * (k + 1) * 2.0 ** -24, 1e-6)
+    rec = {"shape": [S, K, N], "max_row_nonzeros": k, "tolerance": tol,
+           "max_abs_err": within(got.cpu().numpy(), want.cpu().numpy(),
+                                 *tol, what)}
+    rec["bound_ms"], rec["bound_by"] = spmm_fp32_bound_ms(S, K, N)
+    rec["bound_rates"] = {"fp32_flop_per_s": PEAK_FP32_FLOPS,
+                          "bytes_per_s": PEAK_BYTES}
+    if adj.device.type == "cuda":
+        rec["ms"] = cuda_ms(lambda: ops.block_spmm(
+            adj, h, counting=True, out_dtype=torch.float32), 20)
+        rec["plain_ms"] = cuda_ms(lambda: ref.block_spmm_ref(adj, h), 20)
+        rec["library_ms"] = cuda_ms(lambda: torch.matmul(adj, h), 20)
+    return rec
+
+
+def gnn_phase(ops, ref, scale: float = 1.0, device: str = "cuda",
+              cfg=None) -> dict:
+    """Phase 8: SAGE trains on KNOWS2 (``REFRESH DEFERRED``) on the segment
+    path; one ``knows`` write reaches the maintained subgraph (one CSR
+    rebuild, batch equal to the twin's re-extraction); ``embed_on_view``
+    through ``block_spmm``'s fp32 route over KNOWS2 and ROOT_POST equals
+    the segment path; a ``ViewEmbedder`` answers behind a ``knows`` fence.
+    ``block_spmm``'s counts are zeroed before that path and read after it;
+    then one launch at ROOT_POST's shape is checked and timed."""
+    from repro_torch import mv4pg as pg
+    cfg = cfg or pg.TrainConfig()
+    spmm_cfg = dataclasses.replace(cfg, use_block_spmm=True)
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    sess, twin, persons = gnn_views(device, scale)
+    sub = sess.view("KNOWS2").subgraph(weighted=True)
+    rec = {"setup_s": time.perf_counter() - t0,
+           "knows2_edges": sub.edge_count,
+           "root_post_edges": sess.view("ROOT_POST").subgraph().edge_count}
+    reset_launches(ops)
+
+    t0 = time.perf_counter()
+    params, rpt = pg.train_on_view(sess, "KNOWS2", cfg)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    check(rpt.steps > 0 and all(np.isfinite(x) for x in rpt.losses),
+          f"KNOWS2 training losses {rpt.losses}")
+    rec.update(epochs=rpt.epochs, steps=rpt.steps, losses=rpt.losses,
+               final_acc=rpt.final_acc, train_s=train_s,
+               s_per_step=train_s / rpt.steps)
+
+    t0 = time.perf_counter()
+    wb = knows_write(sess, persons, rng)
+    sess.apply_writes(wb)
+    twin.apply_writes(wb)
+    rebuilds = sub.csr_rebuilds
+    check(sub.refresh() and sub.csr_rebuilds == rebuilds + 1
+          and not sub.refresh(), "the knows write did not rebuild KNOWS2's "
+                                 "CSR exactly once")
+    got, want = sub.to_graphbatch(), twin_batch(twin, device)
+    for f in ("node_feat", "edge_src", "edge_dst", "edge_mask", "node_mask",
+              "graph_id", "labels", "edge_weight"):
+        check(torch.equal(getattr(got, f), getattr(want, f)),
+              f"KNOWS2 batch after the write: {f} differs from the "
+              f"re-extraction")
+    rec["write_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    embed_err = {}
+    for view in ("KNOWS2", "ROOT_POST"):
+        a = pg.embed_on_view(sess, view, params, spmm_cfg)
+        b = pg.embed_on_view(sess, view, params, cfg)
+        embed_err[view] = within(a, b, *EMBED_TOL,
+                                  f"{view}: block_spmm embeddings vs segment")
+        rec[f"{view.lower()}_nodes"] = a.shape[0]
+    rec["embed_max_abs_err"] = embed_err
+    rec["embed_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    eng = sess.serve()
+    eng.register_embedder(pg.ViewEmbedder(sess, "KNOWS2", params, spmm_cfg))
+    ids = sess.view("KNOWS2").subgraph().nodes()[:16]
+    t_pre = eng.submit_embed("KNOWS2", ids)
+    eng.submit_writes(knows_write(sess, persons, rng))
+    t_post = eng.submit_embed("KNOWS2", ids)
+    eng.run()
+    rec["launches"] = ops.block_spmm.launches
+    rec["launches_by_route"] = dict(ops.block_spmm.launches_by_route)
+    check(eng.stats.embed_refreshes == 2 and eng.stats.embed_reads == 2
+          and t_post.embed_result.version > t_pre.embed_result.version,
+          f"served embeddings: {eng.stats.summary()}")
+    rec["serve_max_abs_err"] = within(
+        t_post.embed_result.embeddings,
+        pg.embed_on_view(sess, "KNOWS2", params, spmm_cfg, node_ids=ids),
+        1e-5, 1e-6, "served embeddings after the fence vs embed_on_view")
+    rec["serve_s"] = time.perf_counter() - t0
+
+    for view, key in (("KNOWS2", "kernel_knows2"), ("ROOT_POST", "kernel")):
+        adj, h = sage_spmm_operands(sess, view, params)
+        rec[key] = spmm_fp32_check(ops, ref, adj, h,
+                                   f"block_spmm fp32 at {view}'s shape")
+        del adj, h
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # phase 5: segment aggregation
 # ---------------------------------------------------------------------------
 
@@ -1088,10 +1310,27 @@ def main() -> int:
         + json.dumps(online))
     log(f"phase 7: max_memory_allocated {torch.cuda.max_memory_allocated()} B")
     seconds["serve"] = time.perf_counter() - t0      # the three above
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gnn = gnn_phase(ops, ref)
+    seconds["gnn"] = time.perf_counter() - t0
+    gnn_routes = gnn.pop("launches_by_route")
+    check(gnn["launches"] > 0, "the GNN phase never launched block_spmm")
+    check(gnn_routes["fp32"] == gnn["launches"],
+          f"SAGE's block_spmm left the fp32 route: {gnn_routes}")
+    log("phase 8: view-fed GNN on SNB " + json.dumps(
+        {k: v for k, v in gnn.items() if not k.startswith("kernel")}))
+    log("phase 8: block_spmm fp32 at KNOWS2's shape "
+        + json.dumps(gnn["kernel_knows2"]))
+    log("phase 8: block_spmm fp32 at ROOT_POST's shape "
+        + json.dumps(gnn["kernel"]))
+    log(f"phase 8: max_memory_allocated {torch.cuda.max_memory_allocated()} B")
     log("seconds " + json.dumps(seconds))
     by_phase = {"snb": snb_launches, "finbench": launches - snb_launches,
-                "serve": fin_serve["launches"]}
-    spmm_routes = {k: v + routes[k] for k, v in spmm_routes.items()}
+                "serve": fin_serve["launches"], "gnn": gnn["launches"]}
+    spmm_routes = {k: v + routes[k] + gnn_routes[k]
+                   for k, v in spmm_routes.items()}
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
@@ -1106,6 +1345,7 @@ def main() -> int:
         "launches_by_route": spmm_routes, "launches_by_phase": by_phase,
         "slow_slabs": slow_slabs + fin_serve["slow_slabs"],
         "ms_by_rows": {k: v["ms"] for k, v in rec["by_rows"].items()},
+        "fp32_at_root_post": gnn["kernel"],
     }, {
         "name": "segment_multi_agg", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/segment_agg.cu",

@@ -8,9 +8,10 @@ frontier ``F`` (int32 walk counts, or bool under set semantics):
   adds 0/1 messages and tests ``> 0``, which is exactly the scatter-max of
   the reference (torch has no bool scatter-max).
 * ``dense`` backend — the label-masked adjacency is materialized as a dense
-  ``[N, N]`` int32 tile and a hop is ``F @ A``: an fp32 product with TF32
-  off (exact below 2^24; CUDA has no int32 matmul), or, with
-  ``use_kernel``, the hand-written ``block_spmm`` CUDA kernel.
+  ``[N, N]`` int32 tile and a hop is ``F @ A``: an fp64 product cast
+  through int64, exact and wrapping to int32 as the reference's int32
+  product does (CUDA has no integer matmul), or, with ``use_kernel``, the
+  hand-written ``block_spmm`` CUDA kernel.
 
 Hop-range algebra (paper §IV: ``e*n..m``):
   counting, finite m:   ``Σ_{k=n..m} F·A^k``            (exact walk counts)
@@ -140,9 +141,14 @@ def _hop_segment_rows(F, esrc, edst, emask, eweight, *, counting: bool):
 
 
 def _hop_dense(F, A, *, counting: bool):
-    """``F @ A`` in fp32 with TF32 off: exact for counts below 2^24."""
-    out = matmul_f32(F, A)
-    return out.to(torch.int32) if counting else out > 0
+    """``F @ A`` as the reference's int32 product gives it.  Counts take an
+    fp64 product (exact while sums stay below 2^53; CUDA has no integer
+    matmul) cast through int64, so that they wrap to int32 as the
+    reference's do; the bool hop is ``> 0`` of the fp32 product."""
+    if counting:
+        return (F.to(torch.float64) @ A.to(torch.float64)).to(
+            torch.int64).to(torch.int32)
+    return matmul_f32(F, A) > 0
 
 
 def _hop_kernel(F, A, *, counting: bool):

@@ -201,16 +201,27 @@ class ViewHandle:
     # --------------------------------------------------- training substrate
 
     def subgraph(self, extra_labels=(), weighted: bool = False):
-        raise NotImplementedError(
-            "ViewHandle.subgraph is not ported yet (ROADMAP A9)")
+        """The view's maintained edges as an incrementally-refreshed
+        :class:`~repro_torch.graphops.view_subgraph.ViewSubgraph` (cached on
+        the session per (view, extra_labels, weighted) shape)."""
+        from repro_torch.graphops.view_subgraph import ViewSubgraph
+        self._view  # raise early if dropped
+        key = (self.name, tuple(extra_labels), weighted)
+        sub = self._sess._subgraphs.get(key)
+        if sub is None:
+            sub = ViewSubgraph(self._sess, self.name,
+                               extra_labels=extra_labels, weighted=weighted)
+            self._sess._subgraphs[key] = sub
+        return sub
 
     def sampler(self, **kw):
-        raise NotImplementedError(
-            "ViewHandle.sampler is not ported yet (ROADMAP A9)")
+        """A :class:`~repro_torch.graphops.sampler.NeighborSampler` over the
+        maintained subgraph CSR."""
+        return self.subgraph(**kw).sampler()
 
     def to_graphbatch(self, **kw):
-        raise NotImplementedError(
-            "ViewHandle.to_graphbatch is not ported yet (ROADMAP A9)")
+        """The maintained subgraph as one padded GraphBatch."""
+        return self.subgraph().to_graphbatch(**kw)
 
 
 class GraphSession:
@@ -246,6 +257,9 @@ class GraphSession:
         # points so they can evict memo entries keyed on refreshed view labels
         self.write_epoch = 0
         self._serve_engines: "weakref.WeakSet" = weakref.WeakSet()
+        # view-fed training subgraphs (DESIGN.md §14), keyed on
+        # (view, extra_labels, weighted); evicted when the view drops
+        self._subgraphs: Dict[tuple, object] = {}
         self._delta_cfg = ExecConfig(
             backend="segment", src_block=8,
             max_closure_iters=self.cfg.max_closure_iters,
@@ -414,6 +428,8 @@ class GraphSession:
                             len(view.pair_slot))
         if slots.size:
             self._set_graph(G.delete_edges(self.g, slots), {view.label_id})
+        for key in [k for k in self._subgraphs if k[0] == name]:
+            del self._subgraphs[key]
         for eng in list(self._serve_engines):
             eng._on_view_dropped(view)
 

@@ -4,11 +4,12 @@ A graph or schema described by numpy arrays and label lists — for example
 the fields of a graph built by the reference package, pulled to the host —
 becomes the port's :class:`~repro_torch.core.graph.PropertyGraph` /
 :class:`~repro_torch.core.schema.GraphSchema`, so both packages can run on
-identical state.
+identical state.  :func:`sage_params_from_arrays` carries SAGE weights the
+same way.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, Sequence
+from typing import Dict, Iterable, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -54,3 +55,16 @@ def schema_from_labels(node_labels: Sequence[str], edge_labels: Sequence[str],
     for name in view_labels:
         schema.register_view_label(name)
     return schema
+
+
+def sage_params_from_arrays(params: Mapping[str, Mapping[str, object]],
+                            device: DeviceLike = None) -> Dict[str, Dict]:
+    """SAGE parameters in the reference's names and layouts — ``{"enc":
+    {"w", "b"}, "self0": {"w", "b"}, "nbr0": {"w"}, ..., "head": {"w",
+    "b"}}`` of arrays, ``w`` as ``[d_in, d_out]`` — as the port's float32
+    parameter dictionary on ``device``.  The layouts are the same, so this
+    is a copy."""
+    dev = resolve_device(device)
+    return {name: {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(dev)
+                   for k, v in layer.items()}
+            for name, layer in params.items()}

@@ -1,0 +1,2 @@
+"""Launch layer on PyTorch (the port of ``repro.launch``): the view-fed GNN
+training and inference loops."""

@@ -14,6 +14,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -39,7 +40,10 @@ def test_port_has_the_slice_modules():
                  "core.graph", "kernels.ops", "kernels.ref", "kernels.build",
                  "core.executor", "core.plan", "core.maintenance",
                  "core.views", "data.synthetic", "configs.mv4pg", "interop",
-                 "core.selection", "core.online_selection", "serve.engine"):
+                 "core.selection", "core.online_selection", "serve.engine",
+                 "graphops.sampler", "graphops.view_subgraph",
+                 "models.common", "models.gnn.graphdata", "models.gnn.sage",
+                 "launch.gnn", "mv4pg"):
         assert f"repro_torch.{name}" in mods, name
     for src in ("block_spmm", "segment_agg", "flash_attention"):
         assert (PORT / "kernels" / "csrc" / f"{src}.cu").is_file(), src
@@ -288,3 +292,35 @@ def test_chip_smoke_segment_phase_rehearses_on_cpu():
         v = torch.empty((n, w), dtype=torch.bool)
         assert smoke.agg_bytes(v, e, smoke.PNA_D_HIDDEN, 4) == need
     assert smoke.SNB_X10["n_comment"] == 10 * 12000
+
+
+def test_chip_smoke_gnn_phase_rehearses_on_cpu():
+    """Phase 8 at a tiny scale on the host: SAGE trains on KNOWS2 with
+    finite losses, one knows write rebuilds the maintained CSR once and its
+    batch equals the views-off twin's re-extraction, ``embed_on_view``
+    through ``block_spmm`` (its plain version here, so no launch is
+    counted) equals the segment path over KNOWS2 and ROOT_POST, the served
+    embedder answers behind a knows fence, and the kernel check at
+    ROOT_POST's shape holds; the fp32 bound at a 13,568-node ROOT_POST is
+    set by operations."""
+    import importlib.util
+
+    from repro_torch import mv4pg as pg
+    from repro_torch.kernels import ops, ref
+    spec = importlib.util.spec_from_file_location("chip_smoke", SMOKE)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    rec = smoke.gnn_phase(ops, ref, 0.05, "cpu", pg.TrainConfig(epochs=2))
+    assert rec["epochs"] == 2 and rec["steps"] > 0
+    assert rec["knows2_edges"] > 0 and rec["root_post_nodes"] > 0
+    assert rec["launches"] == 0 and rec["launches_by_route"] == {
+        "tc": 0, "fp32": 0}
+    kernel = rec["kernel"]
+    n = kernel["shape"][0]
+    assert n % 128 == 0 and kernel["shape"] == [n, n, 128]
+    assert kernel["max_abs_err"] == 0.0 and "ms" not in kernel
+    bound_ms, bound_by = smoke.spmm_fp32_bound_ms(13568, 13568, 128)
+    assert bound_by == "operations"
+    assert bound_ms == 2.0 * 13568 ** 2 * 128 / smoke.PEAK_FP32_FLOPS * 1e3
+    with pytest.raises(AssertionError):
+        smoke.within(np.ones(3), np.ones(3) + 1e-3, 1e-4, 1e-6, "off")

@@ -266,3 +266,31 @@ def test_cuda_fp32_route(cuda_device, semiring):
     assert p_ops.block_spmm.launches_by_route["fp32"] == before + 1
     assert torch.equal(got, p_ref.block_spmm_ref(tF, tA, tm,
                                                  semiring=semiring))
+
+
+@pytest.mark.cuda
+def test_cuda_sage_aggregates_on_the_fp32_route(cuda_device):
+    """SAGE's aggregation with ``use_block_spmm`` launches the fp32 route
+    once a layer on the card and equals the segment path within the
+    reference's tolerance for its Pallas path (rtol 2e-4, atol 2e-4)."""
+    from repro_torch.models.gnn import graphdata, sage
+    rng = np.random.default_rng(27)
+    n, e = 300, 1200
+    batch = graphdata.pad_graph(
+        rng.normal(size=(n, 11)).astype(np.float32),
+        rng.integers(0, n, e).astype(np.int32),
+        rng.integers(0, n, e).astype(np.int32),
+        labels=rng.integers(0, 8, n).astype(np.int32),
+        edge_weight=rng.integers(1, 4, e).astype(np.float32),
+        device=cuda_device)
+    cfg = sage.SAGEConfig()
+    params = sage.init_params(torch.Generator().manual_seed(0), cfg,
+                              device=cuda_device)
+    before = p_ops.block_spmm.launches_by_route["fp32"]
+    with torch.no_grad():
+        got = sage.forward(params, sage.SAGEConfig(use_block_spmm=True),
+                           batch)
+        want = sage.forward(params, cfg, batch)
+    assert p_ops.block_spmm.launches_by_route["fp32"] == \
+        before + cfg.n_layers
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)

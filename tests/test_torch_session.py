@@ -256,11 +256,20 @@ def test_view_build_paths_and_handles_match_reference():
 def test_unported_surfaces_name_their_roadmap_item():
     from repro_torch.core.selection import SelectionStats
     from repro_torch.serve import ServeEngine
+    """The ViewHandle surfaces once left to ROADMAP A9 (``subgraph``,
+    ``sampler``, ``to_graphbatch``) are ported: each answers as the
+    reference's does.  Serving and selection stay as they were."""
+    from repro_torch.utils import host
     ps, _ = build(P, 0)
-    h = ps.create_view(VIEWS[0])
-    for call in (h.subgraph, h.sampler, h.to_graphbatch):
-        with pytest.raises(NotImplementedError, match="A9"):
-            call()
+    rs, _ = build(R, 0)
+    h, rh = ps.create_view(VIEWS[0]), rs.create_view(VIEWS[0])
+    for a, b in zip(h.subgraph().edges(), rh.subgraph().edges()):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(h.sampler().nbrs, rh.sampler().nbrs)
+    got, want = h.to_graphbatch(), rh.to_graphbatch()
+    for f in ("node_feat", "edge_src", "edge_dst", "labels"):
+        np.testing.assert_array_equal(host(getattr(got, f)),
+                                      np.asarray(getattr(want, f)))
     assert isinstance(ps.serve(), ServeEngine)
     assert isinstance(ps.selection_stats(), SelectionStats)
     picked = ps.select_views([QUERIES[2], QUERIES[4]], k=2)
