@@ -12,13 +12,18 @@ Phases:
      unit shapes (small integers, values above 255 in every K slab or in
      some, counts near 2^24) and at the FinBench workload shape, and time
      kernel, plain version and a ``torch.matmul`` fp32 yardstick;
-  3. the SNB main path: ``snb_like(seed=0)`` through ``GraphSession`` —
-     reads without views, three fused view builds, reads with views (equal
-     rows), CE/DE/DV writes with recover, ``check_consistency``;
-  4. FinBench through the kernel: a session with dense hops on
-     ``block_spmm`` against a segment-hop session, reads bit-exact in reach
-     rows and DBHit/Rows, writes keeping every view consistent; the share
-     of u8 K slabs that took the CUDA cores in phases 3-4 is read after;
+  3. the SNB main path: ``snb_like(seed=0)`` through ``GraphSession``,
+     timed one read and one write at a time as the workload driver's
+     table (each read without views, one warm-up and 3 timed runs, the
+     median kept; three fused view builds; each read with views, equal
+     rows; CE/DE/DV with views and as the raw graph mutation without,
+     ``check_consistency``); then the cost of a closure's flag read
+     beside one more hop at Q1's shape, and Q1's closure iterations;
+  4. FinBench through the kernel, timed the same way: a session with dense
+     hops on ``block_spmm`` against a segment-hop session, reads bit-exact
+     in reach rows and DBHit/Rows, writes keeping every view consistent;
+     the share of u8 K slabs that took the CUDA cores in phases 3-4 is
+     read after;
   5. segment aggregation: ``segment_multi_agg`` against its plain version
      at unit shapes (ragged N, W from 1 to 70, rows all valid and empty,
      one to three column chunks), and on messages bucketed from the
@@ -51,12 +56,26 @@ Phases:
      the segment path; a ``ViewEmbedder`` behind a ``ServeEngine``
      answers before and after a ``knows`` fence; then one launch at each
      view's shape is held to the plain version and timed beside
-     ``torch.matmul``.
+     ``torch.matmul``;
+  9. sharded execution on full SNB: a session with
+     ``ExecConfig(data_shards=4)`` and ``shard_devices=["cuda:0"] * 4``
+     (four logical shards on one card, named explicitly) held read by read
+     to an unsharded session on the same graph, without and with views,
+     through CE/DE/DV with recover, then through a cut of phase 7a's serve
+     script (every ticket and the shared groups equal); it prints the
+     sweeps by owner shard, its seconds and its peak device memory, and
+     one ``torch.profiler`` trace of the unsharded session's SNB Q1, a
+     full read from Comment (device busy share, device-to-host copy time,
+     syncs), taken here as the smoke's last profiler use.
+
+``python3 chip_smoke.py --only=snb,finbench,sharded`` runs the named
+phases alone (after the build) and prints no result line.
 
 Each kernel's launch count is zeroed just before its main path and read
 just after it: phases 3-4, the serve run of 7b and phase 8's path for
 ``block_spmm``, the ends of phases 5 and 6 for the others (comparison
-launches do not count).  ``block_spmm`` and
+launches do not count); phase 9, whose hops are all segment hops, must
+launch none.  ``block_spmm`` and
 ``flash_attention`` also count launches by route: ``tc`` (tensor cores)
 and ``fp32`` (CUDA cores).  Every failed check raises, so the script exits
 non-zero and prints no result line.  It needs one CUDA device; without one
@@ -137,6 +156,17 @@ ATTN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2 ** -7, 1e-4)}
 SERVE_CLIENTS = 16
 SERVE_ROUNDS = 2
 ONLINE_ROUNDS = 6
+# phases 3-4: each read and write timed alone, as the workload driver's
+# table (benchmarks/workload_driver.py::run_workload): one warm-up, then
+# this many runs, the median kept
+READ_REPEATS = 3
+# phase 9: the sharded session, 4 logical shards on one card, and the cut
+# of phase 7a's serve script it serves beside its unsharded twin (with the
+# scheduler's window pinned, so both make the same decisions)
+SHARDS = 4
+SHARD_SERVE_CLIENTS = 4
+SHARD_SERVE_ROUNDS = 1
+SHARD_SERVE_WINDOW = 64
 # phase 8: the reference GNN bench's view and policy
 # (benchmarks/run.py::bench_gnn) on full SNB, beside ROOT_POST
 KNOWS2_MATCH = "MATCH (a:Person)-[:knows]->(m:Person)-[:knows]->(b:Person)"
@@ -416,7 +446,257 @@ def check_views(sess, what: str) -> None:
         check(sess.check_consistency(name), f"{what}: view {name} inconsistent")
 
 
-def snb_phase(scale: float = 1.0, device: str = "cuda") -> dict:
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def timed(fn, repeats: int, device):
+    """The workload driver's ``_time``, with the median in place of the
+    mean: one warm-up call, then ``repeats`` calls, each synced."""
+    out = fn()
+    sync(device)
+    ts = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        out = fn()
+        sync(device)
+        ts.append(time.perf_counter() - t0)
+    return float(np.median(ts)), out
+
+
+def write_times(sess, repeats: int, seed: int = 0) -> dict:
+    """CE, DE and DV timed as the workload driver times them: each with
+    views (the maintained session write and its recover) and as the raw
+    graph mutation without them (on a local graph value, so the session is
+    untouched); DV once each way."""
+    from repro_torch.core import graph as G
+    from repro_torch.utils import host
+    eid, (src, dst, elabel), nid = write_targets(
+        sess, np.random.default_rng(seed))
+    lid = sess.schema.edge_labels.intern(elabel)
+    dev = sess.device
+
+    def ce_with():
+        sess.delete_edge(sess.create_edge(src, dst, elabel))
+
+    def ce_without():
+        g = sess.g
+        slot = int(G.free_edge_slots(g, 1)[0])
+        G.delete_edge(G.create_edge(g, slot, src, dst, lid), slot)
+
+    cur = [eid]
+
+    def de_with():
+        sess.delete_edge(cur[0])
+        cur[0] = sess.create_edge(src, dst, elabel)      # recover
+
+    def de_without():
+        G.create_edge(G.delete_edge(sess.g, cur[0]), cur[0], src, dst, lid)
+
+    out = {}
+    for name, fw, fo in (("CE", ce_with, ce_without),
+                         ("DE", de_with, de_without)):
+        out[name] = {"with_s": timed(fw, repeats, dev)[0],
+                     "without_s": timed(fo, repeats, dev)[0]}
+    g = sess.g
+    e_alive, e_src = host(g.edge_alive), host(g.edge_src)
+    e_dst, e_lab = host(g.edge_dst), host(g.edge_label)
+    inc = np.flatnonzero(e_alive & ((e_src == nid) | (e_dst == nid)))
+    nlabel, nkey = int(host(g.node_label)[nid]), int(host(g.node_key)[nid])
+    sync(dev)
+    t0 = time.perf_counter()
+    sess.delete_node(nid)
+    sync(dev)
+    dv_with = time.perf_counter() - t0
+    sess.g = G.create_node(sess.g, nid, nlabel, nkey)    # recover
+    view_lids = {v.label_id for v in sess.views.values()}
+    for e in inc:
+        if int(e_lab[e]) not in view_lids:
+            sess.create_edge(int(e_src[e]), int(e_dst[e]),
+                             sess.schema.edge_labels.name_of(int(e_lab[e])))
+    sync(dev)
+    t0 = time.perf_counter()
+    G.delete_node(sess.g, nid)
+    sync(dev)
+    out["DV"] = {"with_s": dv_with, "without_s": time.perf_counter() - t0}
+    return out
+
+
+def workload_times(sess, wl, repeats: int, twin=None,
+                   what: str = "") -> dict:
+    """The workload driver's table on one session: each read timed without
+    views, the views built (seconds each), each read timed with views and
+    held to its rows without; then CE/DE/DV (:func:`write_times`) and every
+    view consistent.  With ``twin`` (a session of another backend), every
+    read's rows and DBHit/Rows must equal the twin's, read by read, and the
+    twin's views must store the same pairs after the same writes."""
+    rec = {"read_without_s": [], "read_with_s": [], "view_s": {}}
+    base = []
+
+    def reads(use_views: bool, key: str) -> None:
+        for i, q in enumerate(wl.reads):
+            t, res = timed(lambda q=q: sess.query(q, use_views=use_views),
+                           repeats, sess.device)
+            rec[key].append(t)
+            if twin is not None:
+                rt = twin.query(q, use_views=use_views)
+                check(np.array_equal(res.reach, rt.reach)
+                      and res.metrics == rt.metrics,
+                      f"{what} Q{i + 1} ({key}): sessions differ "
+                      f"({res.metrics} vs {rt.metrics})")
+            if use_views:
+                check(np.array_equal(res.reach, base[i][0])
+                      and res.num_results() == base[i][1],
+                      f"{what} Q{i + 1}: rows with views differ from rows "
+                      f"without")
+            else:
+                base.append((res.reach, res.num_results()))
+
+    reads(False, "read_without_s")
+    for v in wl.views:
+        view = sess.create_view(v)
+        rec["view_s"][view.name] = view.creation_seconds
+        if twin is not None:
+            twin.create_view(v)
+    reads(True, "read_with_s")
+    base.clear()
+    check_views(sess, f"{what} after build")
+    rec["writes"] = write_times(sess, repeats)
+    check_views(sess, f"{what} after CE/DE/DV")
+    if twin is not None:
+        write_times(twin, repeats)      # the same writes, slot for slot
+        check_views(twin, f"{what} twin after CE/DE/DV")
+        for name in sess.views:
+            check(sess.views[name].pair_slot == twin.views[name].pair_slot,
+                  f"{what} view {name}: the sessions store other pairs")
+    return rec
+
+
+def read_trace(sess, q: str, use_views: bool = False) -> dict:
+    """One ``torch.profiler`` trace of a warm read: the device's busy time
+    (the union of its kernels' and copies' intervals), the share of the
+    traced wall clock that is, the device-to-host copy time, and the host's
+    syncs (``cudaStreamSynchronize``/``cudaDeviceSynchronize`` calls, and
+    the port's own ``host``/``host_flag`` counts where it has them)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import utils
+    sess.query(q, use_views=use_views)
+    torch.cuda.synchronize()
+    counts = {f: getattr(getattr(utils, f, None), "calls", None)
+              for f in ("host", "host_flag")}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sess.query(q, use_views=use_views)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev, d2h, syncs, host_start = [], 0.0, 0, None
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            dev.append((e.time_range.start, e.time_range.end))
+            if "DtoH" in e.name or "Device -> Pageable" in e.name:
+                d2h += e.time_range.elapsed_us()
+            continue
+        if host_start is None or e.time_range.start < host_start:
+            host_start = e.time_range.start
+        if e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize"):
+            syncs += 1
+    busy, last = 0.0, None
+    for a, b in sorted(dev):
+        if last is None or a > last:
+            busy += b - a
+            last = b
+        elif b > last:
+            busy += b - last
+            last = b
+    first, end = (min(a for a, _ in dev), max(b for _, b in dev)) if dev \
+        else (0.0, 0.0)
+    rec = {"wall_ms": wall * 1e3, "device_ops": len(dev),
+           "device_busy_ms": busy / 1e3,
+           "busy_share": busy / 1e3 / (wall * 1e3),
+           "device_span_ms": (end - first) / 1e3, "d2h_ms": d2h / 1e3,
+           "syncs": syncs}
+    if dev and host_start is not None:
+        # host time before the first device op, and after the last one
+        # (the pulled rows turned into the result), of the traced wall
+        rec["host_head_ms"] = (first - host_start) / 1e3
+        rec["host_tail_ms"] = wall * 1e3 - (end - host_start) / 1e3
+    for f, c0 in counts.items():
+        if c0 is not None:
+            rec[f"{f}_calls"] = getattr(utils, f).calls - c0
+    return rec
+
+
+def closure_costs(sess, q: str, iters: int = 50, max_k: int = 8) -> dict:
+    """What a closure's flag read costs beside one more hop, at ``q``'s
+    shape (its first unbounded step, one full source block of the plan's
+    sources): per iteration, a hop on an empty frontier alone and the same
+    hop followed by the flag read (CUDA events over ``iters`` iterations in
+    a row); then, for each source block, the hops until the frontier
+    empties (the closure's iterations: hops from the sources less the
+    step's lower bound), and for each fixed stride k what those blocks
+    would pay with ``plan.CLOSURE_SYNC_EVERY = k``: a flag read after the
+    first iteration and then every k, and the iterations run past the
+    empty frontier."""
+    from repro_torch.core.executor import (
+        _active_rows_per_source, _hop_segment, _init_frontier)
+    from repro_torch.core.plan import ExpandStep
+    from repro_torch.core.parser import parse_query
+    from repro_torch.utils import INF_HOPS
+    plan, _ = sess.planner.plan(parse_query(q), [], 0)
+    step = next(s for s in plan.steps if isinstance(s, ExpandStep)
+                and s.max_hops == INF_HOPS)
+    esrc, edst, ew, emask = sess.engine.label_edges(step.label_id,
+                                                    step.preds)
+    blk, N = sess.cfg.src_block, sess.g.node_cap
+    F = torch.zeros((blk, N), dtype=torch.bool, device=sess.device)
+
+    def hop():
+        nxt = _hop_segment(F, esrc, edst, emask, ew, counting=False,
+                           reverse=step.reverses[0])
+        return (F | nxt), (nxt & ~F), _active_rows_per_source(nxt)
+
+    def hop_and_flag():
+        bool(hop()[1].any())
+
+    rec = {"edges": int(esrc.shape[0]), "hop_ms": cuda_ms(hop, iters),
+           "hop_and_flag_ms": cuda_ms(hop_and_flag, iters)}
+    sync_ms = rec["hop_and_flag_ms"] - rec["hop_ms"]
+    srcs = plan.default_sources()
+    hops = []
+    for b0 in range(0, srcs.shape[0], blk):
+        ids = np.full(blk, -1, np.int32)
+        part = srcs[b0:b0 + blk]
+        ids[:part.shape[0]] = part
+        reach = frontier = _init_frontier(
+            torch.from_numpy(ids).to(sess.device), N, False)
+        n = 0
+        while bool(frontier.any()):
+            nxt = _hop_segment(frontier, esrc, edst, emask, ew,
+                               counting=False, reverse=step.reverses[0])
+            frontier, reach = nxt & ~reach, reach | nxt
+            n += 1
+        hops.append(max(n - max(step.min_hops, 0), 1))
+    rec["closure_iterations"] = {"blocks": len(hops), "min": min(hops),
+                                 "median": float(np.median(hops)),
+                                 "max": max(hops)}
+    cost = {}
+    for k in range(1, max_k + 1):
+        reads = sum(1 + -(-(t - 1) // k) for t in hops)
+        waste = sum(1 + -(-(t - 1) // k) * k - t for t in hops)
+        cost[k] = reads * sync_ms + waste * rec["hop_ms"]
+    rec["sync_ms"] = sync_ms
+    rec["stride_cost_ms"] = cost
+    rec["best_stride"] = min(cost, key=cost.get)
+    return rec
+
+
+def snb_phase(scale: float = 1.0, device: str = "cuda",
+              repeats: int = READ_REPEATS, trace: bool = True) -> dict:
+    """SNB's table; on the card also the closure's flag-read cost and,
+    with ``trace``, the Q1 trace (the smoke takes it in phase 9 instead:
+    a large trace here cost phase 5's profiler two of its events)."""
     from repro_torch.configs.mv4pg import SNB_WORKLOAD as WL
     from repro_torch.core import GraphSession
     from repro_torch.data.synthetic import snb_like
@@ -426,25 +706,19 @@ def snb_phase(scale: float = 1.0, device: str = "cuda") -> dict:
     sess = GraphSession(g, schema, device=device)
     log(f"phase 3: snb_like nodes={g.num_nodes()} edges={g.num_edges()} "
         f"node_cap={g.node_cap}")
-    base = []
-    for q in WL.reads:
-        res = sess.query(q, use_views=False)
-        base.append((res.reach, res.num_results()))
-    for v in WL.views:
-        sess.create_view(v)
-    for i, q in enumerate(WL.reads):
-        res = sess.query(q, use_views=True)
-        check(np.array_equal(res.reach, base[i][0])
-              and res.num_results() == base[i][1],
-              f"SNB Q{i + 1}: rows with views differ from rows without")
-    base.clear()
-    check_views(sess, "SNB after build")
-    run_writes(sess)
-    check_views(sess, "SNB after CE/DE/DV")
-    return {"nodes": g.num_nodes(), "node_cap": g.node_cap}
+    rec = workload_times(sess, WL, repeats, what="SNB")
+    out = {"nodes": g.num_nodes(), "node_cap": g.node_cap, "times": rec}
+    if torch.device(device).type == "cuda":
+        out["closure_q1"] = closure_costs(sess, WL.reads[0])
+        if trace:
+            out["trace_q1"] = read_trace(sess, WL.reads[0])
+    return out
 
 
-def finbench_phase(scale: float = 1.0, device: str = "cuda") -> dict:
+def finbench_phase(scale: float = 1.0, device: str = "cuda",
+                   repeats: int = READ_REPEATS) -> dict:
+    """Session K (dense hops on ``block_spmm``) timed read by read and
+    write by write, every read held to session S (segment hops)."""
     from repro_torch.configs.mv4pg import FINBENCH_WORKLOAD as WL
     from repro_torch.core import ExecConfig, GraphSession
     from repro_torch.data.synthetic import finbench_like
@@ -459,30 +733,14 @@ def finbench_phase(scale: float = 1.0, device: str = "cuda") -> dict:
     K, S = sessions["K"], sessions["S"]
     log(f"phase 4: finbench_like nodes={K.g.num_nodes()} "
         f"node_cap={K.g.node_cap}")
-
-    def reads(use_views: bool, what: str) -> None:
-        for i, q in enumerate(WL.reads):
-            rk = K.query(q, use_views=use_views)
-            rs = S.query(q, use_views=use_views)
-            check(np.array_equal(rk.reach, rs.reach)
-                  and rk.metrics == rs.metrics,
-                  f"FinBench Q{i + 1} {what}: kernel session differs "
-                  f"({rk.metrics} vs {rs.metrics})")
-
-    reads(False, "without views")
-    for v in WL.views:
-        K.create_view(v)
-        S.create_view(v)
-    reads(True, "with views")
-    for sess in (K, S):
-        check_views(sess, "FinBench after build")
-        run_writes(sess)
-        check_views(sess, "FinBench after CE/DE/DV")
-    for name in K.views:
-        check(K.views[name].pair_slot == S.views[name].pair_slot,
-              f"FinBench view {name}: kernel session stores other pairs")
-    reads(True, "after writes")
-    return {"max_memory_allocated": (torch.cuda.max_memory_allocated()
+    rec = workload_times(K, WL, repeats, twin=S, what="FinBench")
+    for i, q in enumerate(WL.reads):
+        rk, rs = K.query(q, use_views=True), S.query(q, use_views=True)
+        check(np.array_equal(rk.reach, rs.reach)
+              and rk.metrics == rs.metrics,
+              f"FinBench Q{i + 1} after writes: kernel session differs")
+    return {"times": rec,
+            "max_memory_allocated": (torch.cuda.max_memory_allocated()
                                      if device == "cuda" else None)}
 
 
@@ -674,6 +932,118 @@ def online_phase(scale: float = 1.0, device: str = "cuda",
             "create_s": sel.stats.create_seconds,
             "auto_s": seconds["auto"], "plain_s": seconds["plain"],
             "summary": engines["auto"].stats.summary()}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: sharded execution
+# ---------------------------------------------------------------------------
+
+def digest(res) -> list:
+    """What is kept of a read once it is checked: its shape, its pairs and
+    path counts summed, and DBHit/Rows (one SNB read's rows can take 3 GB
+    of host memory)."""
+    return [list(res.reach.shape), int(np.count_nonzero(res.reach)),
+            int(res.reach.sum(dtype=np.int64)), res.metrics.db_hits,
+            res.metrics.rows]
+
+
+def sharded_phase(scale: float = 1.0, device: str = "cuda",
+                  shards: int = SHARDS, clients: int = SHARD_SERVE_CLIENTS,
+                  rounds: int = SHARD_SERVE_ROUNDS) -> dict:
+    """SNB on a session sharded ``shards`` ways, every shard on ``device``
+    (the list names it ``shards`` times: a session on the card with
+    ``shard_devices=None`` would take one card per shard, and raises when
+    fewer are visible), held to an unsharded session on the same graph:
+    SNB_WORKLOAD's 7 reads without and then with its 3 views, read by read,
+    rows and DBHit/Rows bit for bit with both sessions alive; CE/DE/DV with
+    recover and every view consistent, the same pairs in both; then a cut
+    of phase 7a's serve script through both sessions' serve engines (the
+    window pinned), every ticket and the shared groups equal."""
+    from repro_torch.configs.mv4pg import SNB_WORKLOAD as WL
+    from repro_torch.core import ExecConfig, GraphSession
+    from repro_torch.data.synthetic import snb_like
+    from repro_torch.serve import ServeConfig
+    sizes = dict(seed=0, n_person=int(2000 * scale), n_post=int(1500 * scale),
+                 n_comment=int(12000 * scale), device=device)
+    dev = torch.device("cuda", 0) if device == "cuda" else torch.device(
+        device)
+    shard_devices = [dev] * shards
+    one = GraphSession(*snb_like(**sizes)[:2], device=device)
+    sh = GraphSession(*snb_like(**sizes)[:2], ExecConfig(data_shards=shards),
+                      device=device, shard_devices=shard_devices)
+    N = sh.g.node_cap
+    rec = {"shards": shards, "shard_devices": [str(d) for d in
+                                               sh.engine.shard_devices()],
+           "nodes": sh.g.num_nodes(), "node_cap": N,
+           "n_loc": sh.engine.node_pad() // shards,
+           "read_s": {"sharded": 0.0, "unsharded": 0.0}, "reads": []}
+
+    def reads(use_views: bool) -> None:
+        for i, q in enumerate(WL.reads):
+            t0 = time.perf_counter()
+            got = sh.query(q, use_views=use_views)
+            t1 = time.perf_counter()
+            want = one.query(q, use_views=use_views)
+            rec["read_s"]["sharded"] += t1 - t0
+            rec["read_s"]["unsharded"] += time.perf_counter() - t1
+            check(np.array_equal(got.reach, want.reach)
+                  and got.metrics == want.metrics,
+                  f"sharded SNB Q{i + 1} (views {use_views}): differs from "
+                  f"the unsharded session ({got.metrics} vs {want.metrics})")
+            rec["reads"].append(digest(got))
+            del got, want
+
+    reads(False)
+    if dev.type == "cuda":        # the smoke's last profiler use: phase 3's
+        rec["trace_q1"] = read_trace(one, WL.reads[0])      # Q1, unsharded
+    for v in WL.views:
+        sh.create_view(v)
+        one.create_view(v)
+    reads(True)
+    for sess in (sh, one):
+        run_writes(sess)
+    # the sharded session's views checked against a recompute; the
+    # unsharded session's must then store the very same pairs
+    check_views(sh, "sharded SNB after CE/DE/DV")
+    for name in sh.views:
+        check(sh.views[name].pair_slot == one.views[name].pair_slot,
+              f"sharded SNB view {name}: stores other pairs")
+    rec["sweeps_by_owner"] = dict(sorted(sh.engine.shard_sweeps.items()))
+    rec["view_owners"] = {name: sh.engine.shard_owner_of(v.label_id)
+                          for name, v in sh.views.items()}
+
+    ops = serve_script(sh, WL, clients, rounds, np.random.default_rng(0))
+    pin = ServeConfig(window_init=SHARD_SERVE_WINDOW,
+                      window_min=SHARD_SERVE_WINDOW,
+                      window_max=SHARD_SERVE_WINDOW)
+    stats, tickets = {}, {}
+    for name, sess in (("sharded", sh), ("unsharded", one)):
+        eng = sess.serve(pin)
+        t0 = time.perf_counter()
+        tickets[name] = [eng.submit(p, sources=src) if kind == "read"
+                         else eng.submit_writes(p) for kind, p, src in ops]
+        stats[name] = eng.run()
+        rec[f"serve_s_{name}"] = time.perf_counter() - t0
+    for i, (a, b) in enumerate(zip(tickets["sharded"], tickets["unsharded"])):
+        if ops[i][0] != "read":
+            continue
+        check(np.array_equal(a.result.src_ids, b.result.src_ids)
+              and np.array_equal(a.result.reach, b.result.reach)
+              and a.result.metrics == b.result.metrics,
+              f"sharded serve: ticket {i} differs from the unsharded twin")
+        a.result = b.result = None
+    st, su = stats["sharded"], stats["unsharded"]
+    check(st.shared_groups == su.shared_groups
+          and st.warm_pool_hits == su.warm_pool_hits,
+          f"sharded serve: shared groups {st.shared_groups} / warm pool "
+          f"{st.warm_pool_hits} vs {su.shared_groups} / {su.warm_pool_hits}")
+    check(st.shared_groups > 0, "sharded serve shared no group")
+    check_views(sh, "sharded SNB after serving")
+    rec.update(serve_queries=st.queries, shared_groups=st.shared_groups,
+               warm_pool_hits=st.warm_pool_hits, serve_windows=st.windows,
+               sweeps_by_owner_after_serve=dict(
+                   sorted(sh.engine.shard_sweeps.items())))
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -1215,7 +1585,59 @@ def attention_phase(ops, ref) -> dict:
 
 # ---------------------------------------------------------------------------
 
+def log_workload(what: str, rec: dict) -> None:
+    """Phases 3-4's table: each read's median seconds without and with
+    views, the views' build seconds, CE/DE/DV with and without views, and
+    (SNB) the Q1 trace and the closure's flag-read cost."""
+    t = rec["times"]
+    log(f"{what} reads one by one (median of {READ_REPEATS}, s): without "
+        f"views {json.dumps(t['read_without_s'])}; with views "
+        f"{json.dumps(t['read_with_s'])}; view builds "
+        f"{json.dumps(t['view_s'])}")
+    log(f"{what} writes one by one (s): {json.dumps(t['writes'])}")
+    for key in ("trace_q1", "closure_q1"):
+        if key in rec:
+            log(f"{what} {key}: {json.dumps(rec[key])}")
+
+
+def run_sharded(ops, seconds: dict) -> dict:
+    """Phase 9 with its counts zeroed just before it and read after."""
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(ops)
+    t0 = time.perf_counter()
+    shard = sharded_phase()
+    seconds["sharded"] = time.perf_counter() - t0
+    shard["launches"] = ops.block_spmm.launches
+    shard["seconds"] = seconds["sharded"]
+    shard["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    log("phase 9: sharded SNB (shard_devices = ['cuda:0'] * "
+        f"{SHARDS}, named explicitly) == unsharded session; "
+        + json.dumps(shard))
+    return shard
+
+
+def probe(only: list, seconds: dict) -> int:
+    """``--only=snb,finbench,sharded``: the named phases alone, for a
+    short call on the card; prints no result line."""
+    from repro_torch.kernels import ops
+    if "snb" in only:
+        t0 = time.perf_counter()
+        log_workload("phase 3: SNB", snb_phase())
+        seconds["snb"] = time.perf_counter() - t0
+    if "finbench" in only:
+        t0 = time.perf_counter()
+        log_workload("phase 4: FinBench session K", finbench_phase())
+        seconds["finbench"] = time.perf_counter() - t0
+    if "sharded" in only:
+        run_sharded(ops, seconds)
+    log("seconds " + json.dumps(seconds))
+    return 0
+
+
 def main() -> int:
+    only = [a.split("=", 1)[1].split(",") for a in sys.argv[1:]
+            if a.startswith("--only=")]
+    only = only[0] if only else []
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1246,6 +1668,9 @@ def main() -> int:
     smi = nvidia_smi()
     log(f"nvidia-smi: {smi}")
 
+    if only:
+        return probe(only, seconds)
+
     t0 = time.perf_counter()
     rec = spmm_checks(ops, ref)
     seconds["kernel_checks"] = time.perf_counter() - t0
@@ -1253,7 +1678,7 @@ def main() -> int:
     reset_launches(ops)
     ops.spmm_slow_slabs("cuda").zero_()
     t0 = time.perf_counter()
-    snb = snb_phase()
+    snb = snb_phase(trace=False)
     seconds["snb"] = time.perf_counter() - t0
     snb_launches = ops.block_spmm.launches
     torch.cuda.reset_peak_memory_stats()
@@ -1266,8 +1691,9 @@ def main() -> int:
     check(launches > 0, "the main path never launched block_spmm")
     check(spmm_routes["tc"] == launches,
           f"the main path's block_spmm left the u8 route: {spmm_routes}")
-    log(f"phase 3: SNB {json.dumps(snb)}; "
-        f"block_spmm launches {snb_launches}")
+    log_workload("phase 3: SNB", snb)
+    log(f"phase 3: block_spmm launches {snb_launches}")
+    log_workload("phase 4: FinBench session K", fin)
     log(f"phase 4: block_spmm launches {launches - snb_launches}; "
         f"max_memory_allocated {fin['max_memory_allocated']} B")
     log(f"phases 3-4: block_spmm routes {json.dumps(spmm_routes)}; "
@@ -1326,6 +1752,12 @@ def main() -> int:
     log("phase 8: block_spmm fp32 at ROOT_POST's shape "
         + json.dumps(gnn["kernel"]))
     log(f"phase 8: max_memory_allocated {torch.cuda.max_memory_allocated()} B")
+
+    gc.collect()                     # phase 8's sessions and their caches
+    torch.cuda.empty_cache()
+    shard = run_sharded(ops, seconds)
+    check(shard["launches"] == 0, "the sharded path launched block_spmm: "
+                                  "its hops are segment hops")
     log("seconds " + json.dumps(seconds))
     by_phase = {"snb": snb_launches, "finbench": launches - snb_launches,
                 "serve": fin_serve["launches"], "gnn": gnn["launches"]}

@@ -25,7 +25,7 @@ are int64 multiply-sums on the device; totals accumulate in Python ints.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Iterable, NamedTuple, Optional, Tuple
+from typing import Dict, Iterable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -56,6 +56,10 @@ class ExecConfig:
     #                                 "segment"/"dense"/"kernel" force one
     dense_node_limit: int = 4096    # never go dense above this node_cap
     dense_density: float = 0.05     # E_label / node_cap^2 threshold for dense
+    data_shards: int = 1            # >1: compiled plans run sharded over the
+    #                                 engine's shard devices (node columns
+    #                                 and per-label edge slices partitioned
+    #                                 by scatter-side owner; DESIGN.md §12)
 
 
 @dataclass
@@ -138,6 +142,39 @@ def _hop_segment_rows(F, esrc, edst, emask, eweight, *, counting: bool):
     msg = (src_vals & emask).to(torch.int32)
     hits = torch.zeros(F.shape, dtype=torch.int32, device=F.device)
     return hits.scatter_add_(1, edst, msg) > 0
+
+
+def _hop_segment_local(F_full, a, b_local, emask, eweight, *, counting: bool,
+                       n_loc: int):
+    """A shard's half of a sharded segment hop: gather from the all-gathered
+    frontier (``F_full`` [blk, N_pad]), scatter into the shard's **local**
+    node columns only (``[blk, n_loc]``).  Edges are partitioned by
+    scatter-side owner with ``b_local`` localized (int64 ``a``/``b_local``,
+    :func:`repro_torch.graphops.distributed.partition_hop_edges`), so no
+    cross-shard scatter exists; direction is folded into the operands."""
+    shape = (F_full.shape[0], n_loc)
+    if counting:
+        msg = torch.where(emask[None, :], F_full[:, a] * eweight[None, :], 0)
+        return torch.zeros(shape, dtype=F_full.dtype,
+                           device=F_full.device).index_add_(1, b_local, msg)
+    msg = (F_full[:, a] & emask[None, :]).to(torch.int32)
+    hits = torch.zeros(shape, dtype=torch.int32, device=F_full.device)
+    return hits.index_add_(1, b_local, msg) > 0
+
+
+def _hop_segment_rows_local(F_full, a, b_local, emask, eweight, *,
+                            counting: bool, n_loc: int):
+    """Row-parameterized :func:`_hop_segment_local` (``[blk, Ep]`` operand
+    rows: the sharded ``SharedProgram`` hop)."""
+    shape = (F_full.shape[0], n_loc)
+    src_vals = torch.gather(F_full, 1, a)
+    if counting:
+        msg = torch.where(emask, src_vals * eweight, 0)
+        return torch.zeros(shape, dtype=F_full.dtype,
+                           device=F_full.device).scatter_add_(1, b_local, msg)
+    msg = (src_vals & emask).to(torch.int32)
+    hits = torch.zeros(shape, dtype=torch.int32, device=F_full.device)
+    return hits.scatter_add_(1, b_local, msg) > 0
 
 
 def _hop_dense(F, A, *, counting: bool):
@@ -235,7 +272,8 @@ class ExecEngine:
     """
 
     def __init__(self, g: PropertyGraph, schema: GraphSchema,
-                 cfg: Optional[ExecConfig] = None):
+                 cfg: Optional[ExecConfig] = None,
+                 shard_devices: Optional[Sequence] = None):
         self.g = g
         self.schema = schema
         self.cfg = cfg or ExecConfig()
@@ -247,6 +285,18 @@ class ExecEngine:
         self._adj_cache: Dict[Tuple, Tuple[int, torch.Tensor]] = {}
         self._base_mask_cache: Optional[Tuple[Tuple[int, int], np.ndarray]] = None
         self._count_cache: Dict[int, Tuple[Tuple[int, int], int]] = {}
+        # sharded (dst-partitioned) hop operands: (label, preds, rev, D) ->
+        # (validity, per-shard tensors).  Validity is (label epoch,
+        # reset_generation, node_cap): the partition is a function of the
+        # node capacity, so arena growth re-partitions everywhere
+        self._shard_cache: Dict[Tuple, Tuple[Tuple, Tuple]] = {}
+        self._shard_nodes_cache: Optional[Tuple] = None
+        self.shard_devices_arg = (None if shard_devices is None
+                                  else list(shard_devices))
+        self._mesh = None
+        # maintenance routing: owner shard -> delta sweeps routed there
+        # (views.py records one per drained/maintained view when sharded)
+        self.shard_sweeps: Dict[int, int] = {}
         self.hits = 0
         self.misses = 0
 
@@ -275,6 +325,8 @@ class ExecEngine:
             self._deg_cache.clear()
             self._adj_cache.clear()
             self._count_cache.clear()
+            self._shard_cache.clear()
+            self._shard_nodes_cache = None
             return
         touched = {int(lid) for lid in touched_edge_labels}
         touches_base = bool(touched - self.schema.view_edge_ids)
@@ -291,13 +343,17 @@ class ExecEngine:
             del self._deg_cache[k]
         for k in [k for k in self._adj_cache if stale(k[0])]:
             del self._adj_cache[k]
+        for k in [k for k in self._shard_cache if stale(k[0])]:
+            del self._shard_cache[k]
+        self._shard_nodes_cache = None
 
     def snapshot(self, g: Optional[PropertyGraph] = None,
                  touched_edge_labels: Optional[Iterable[int]] = None
                  ) -> "ExecEngine":
         """Derived engine sharing every still-valid cache entry (the dicts
         are shallow copies; cached tensors are never written in place)."""
-        eng = ExecEngine(self.g, self.schema, self.cfg)
+        eng = ExecEngine(self.g, self.schema, self.cfg,
+                         shard_devices=self.shard_devices_arg)
         eng.epochs = self.epochs.snapshot()
         eng._edge_cache = dict(self._edge_cache)
         eng._edge_pred_cache = dict(self._edge_pred_cache)
@@ -305,6 +361,8 @@ class ExecEngine:
         eng._adj_cache = dict(self._adj_cache)
         eng._base_mask_cache = self._base_mask_cache
         eng._count_cache = dict(self._count_cache)
+        eng._shard_cache = dict(self._shard_cache)
+        eng._mesh = self._mesh
         if g is not None:
             eng.set_graph(g, touched_edge_labels)
         return eng
@@ -429,6 +487,135 @@ class ExecEngine:
             lambda: _dense_adjacency(self.g,
                                      self._pred_edge_mask(label_id, preds),
                                      counting, reverse))
+
+    # -- sharded execution (DESIGN.md §12) --------------------------------
+
+    @property
+    def n_shards(self) -> int:
+        return max(int(self.cfg.data_shards), 1)
+
+    def mesh(self) -> np.ndarray:
+        """The ``(data_shards, 1)`` grid of devices sharded plans run on:
+        the ``shard_devices`` the engine was given, else ``["cpu"] * N`` for
+        a session on the host, else the first N visible cards (raising when
+        fewer are visible).  Built lazily, so an unsharded session never
+        asks for one."""
+        if self._mesh is None or self._mesh.shape[0] != self.n_shards:
+            from repro_torch.launch.mesh import make_host_mesh
+            devices = self.shard_devices_arg
+            if devices is None and self.device.type == "cpu":
+                devices = ["cpu"] * self.n_shards
+            self._mesh = make_host_mesh(n_data=self.n_shards,
+                                        devices=devices)
+        return self._mesh
+
+    def shard_devices(self) -> list:
+        """Shard ``s``'s device, for each shard."""
+        return list(self.mesh()[:, 0])
+
+    def node_pad(self) -> int:
+        """Node-column capacity padded to a shard multiple; ``n_loc =
+        node_pad // n_shards`` columns live on each shard.  Pad columns are
+        dead (no edge scatters there, sources never select them)."""
+        return max(round_up(self.g.node_cap, self.n_shards), self.n_shards)
+
+    def _shard_validity(self, label_id: int) -> Tuple[int, int, int]:
+        """Sharded entries revalidate on the label epoch, the reset
+        generation and node_cap: the partition is a function of the node
+        capacity, and reset fences (arena growth, external swaps) must
+        invalidate every shard's cached slices."""
+        return (self.epochs.of(label_id), self.epochs.reset_generation,
+                self.g.node_cap)
+
+    def shard_put_edges(self, arr) -> Tuple[torch.Tensor, ...]:
+        """A ``[D, ...]`` stacked per-shard array as a tuple of tensors,
+        row ``s`` on shard ``s``'s device."""
+        t = torch.as_tensor(arr)
+        return tuple(t[s].to(dev) for s, dev in
+                     enumerate(self.shard_devices()))
+
+    def shard_put_cols(self, col: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """A ``[N_pad, ...]`` node-column tensor split into each shard's
+        ``n_loc`` local columns, each on its shard's device."""
+        n_loc = col.shape[0] // self.n_shards
+        return tuple(col[s * n_loc:(s + 1) * n_loc].to(dev)
+                     for s, dev in enumerate(self.shard_devices()))
+
+    def shard_put_mask_stack(self, arr: torch.Tensor
+                             ) -> Tuple[torch.Tensor, ...]:
+        """A ``[M, N_pad]`` member-mask stack split into each shard's
+        ``[M, n_loc]`` columns (members replicated)."""
+        n_loc = arr.shape[1] // self.n_shards
+        return tuple(arr[:, s * n_loc:(s + 1) * n_loc].to(dev)
+                     for s, dev in enumerate(self.shard_devices()))
+
+    def sharded_label_edges(self, label_id: int, reverse: bool,
+                            preds: Tuple[PropPred, ...] = ()):
+        """Dst-partitioned hop operands for one (label, preds, direction):
+        ``(a, b_local, w, mask, deg)``, each a tuple with shard ``s``'s
+        ``[Ep]`` row (deg ``[N_pad]``) on shard ``s``'s device.  Partitioned
+        by the hop's scatter-side endpoint (dst, or src for reverse hops) on
+        the host (:func:`~repro_torch.graphops.distributed.
+        partition_hop_edges`); ``deg`` is the shard's partial degree vector,
+        the shards' partials summing to :meth:`deg` exactly.  Cached per
+        (label, preds, direction) under :meth:`_shard_validity`."""
+        from repro_torch.graphops.distributed import partition_hop_edges
+        key = (label_id, preds, reverse, self.n_shards)
+        validity = self._shard_validity(label_id)
+        ent = self._shard_cache.get(key)
+        if ent is not None and ent[0] == validity:
+            self.hits += 1
+            return ent[1]
+        self.misses += 1
+        esrc, edst, ew, emask = host(*self.label_edges(label_id, preds))
+        src, dst, w = esrc[emask], edst[emask], ew[emask]
+        gather, scatter = (dst, src) if reverse else (src, dst)
+        a, b_local, w, m, deg = partition_hop_edges(
+            gather, scatter, w, self.node_pad(), self.n_shards)
+        val = tuple(self.shard_put_edges(x) for x in (
+            a.astype(np.int64), b_local.astype(np.int64), w, m, deg))
+        self._shard_cache[key] = (validity, val)
+        return val
+
+    def sharded_node_data(self, nprop_names: Tuple[str, ...]):
+        """Node columns padded to :meth:`node_pad` and split by shard:
+        ``(label, key, alive, props)``, each a tuple of per-shard
+        ``[n_loc]`` tensors.  Cached per graph object identity (every write
+        makes a new graph: mutation clones what it changes); pad columns
+        are dead (alive=False) and unreachable."""
+        n_pad = self.node_pad()
+        cached = self._shard_nodes_cache
+        if (cached is not None and cached[0] is self.g
+                and cached[1] == nprop_names and cached[2] == n_pad):
+            return cached[3]
+        g = self.g
+
+        def split(col):
+            return self.shard_put_cols(torch.nn.functional.pad(
+                col, (0, n_pad - g.node_cap)))
+
+        val = (split(g.node_label), split(g.node_key), split(g.node_alive),
+               tuple(split(g.node_prop_col(n)) for n in nprop_names))
+        self._shard_nodes_cache = (g, nprop_names, n_pad, val)
+        return val
+
+    def padded_node_mask(self, m: torch.Tensor) -> torch.Tensor:
+        """A ``[node_cap]`` bool node mask padded with False to
+        :meth:`node_pad` (on its device: the sharded SharedProgram stacks
+        member masks, then splits the stack by
+        :meth:`shard_put_mask_stack`)."""
+        return torch.nn.functional.pad(m, (0, self.node_pad() - m.shape[0]))
+
+    def shard_owner_of(self, label_id: int) -> int:
+        from repro_torch.graphops.distributed import shard_owner
+        return shard_owner(label_id, self.n_shards)
+
+    def note_shard_sweep(self, label_id: int) -> None:
+        """Record one maintenance delta sweep routed to a label's owner
+        shard (views.py calls this per drained/maintained view when
+        sharded)."""
+        owner = self.shard_owner_of(label_id)
+        self.shard_sweeps[owner] = self.shard_sweeps.get(owner, 0) + 1
 
 
 # ---------------------------------------------------------------------------

@@ -733,3 +733,17 @@ def pending_affected_sources(pending: PendingDelta, templates: ViewTemplates,
         affected = np.union1d(affected, aff).astype(np.int32)
     return affected
 
+
+def owner_order(views: Sequence, n_shards: int) -> List:
+    """Order views for a sharded drain pass: group by the owner shard of each
+    view's edge label (``label_id % n_shards``), stable within a shard.
+
+    Sharded sessions route every view's delta sweep to its label's owner
+    shard; visiting views owner by owner keeps a drain batch's maintenance
+    work anchored to one shard at a time (DESIGN.md §12).  Safe under
+    view-on-view dependencies: :meth:`GraphSession._drain_view` drains a
+    stale dependency recursively before re-deriving through its edges,
+    whatever the pass order."""
+    from repro_torch.graphops.distributed import shard_owner
+    return sorted(views, key=lambda v: (shard_owner(v.label_id, n_shards),
+                                        v.label_id))

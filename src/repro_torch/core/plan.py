@@ -13,8 +13,10 @@ A :class:`QueryPlanner` compiles a query once into a cached
    ``dense`` fp32 product, or the hand-written ``block_spmm`` kernel) from
    cached per-label edge counts;
 4. **fused execution** — one method walks the whole step list per source
-   block, with DBHit/Rows accumulated as per-row device vectors and synced
-   once per block instead of once per hop.
+   block, with DBHit/Rows accumulated as per-row device vectors.  Every
+   block's reach rows and metric vectors stay on the device until the last
+   block has run; then one :func:`~repro_torch.utils.host` call pulls them
+   all (one pull per batch, as the reference).
 
 **Invalidation.** A cached plan revalidates against the label epochs of
 every edge label it touches (wildcard hops key off the base generation),
@@ -27,8 +29,22 @@ DBHit/Rows parity with the per-hop :class:`~repro_torch.core.executor.PathExecut
 is exact: the program reuses the executor's hop functions in the same order,
 and bounded hops past an empty frontier add exactly zero to both counters.
 An unbounded closure is a host loop with the reference's
-``max_closure_iters`` bound and convergence flag; its DBHit telescopes to
-one multiply-sum over the converged reach set.
+``max_closure_iters`` bound; it reads its "frontier is empty" flag
+(:func:`~repro_torch.utils.host_flag`) after its first iteration, then
+every ``CLOSURE_SYNC_EVERY``: hops past an empty frontier add exactly zero,
+so the stride never changes an answer.  Its DBHit telescopes to one multiply-sum over the converged reach
+set.
+
+**Sharded execution** (``ExecConfig(data_shards=N)``, DESIGN.md §12).  One
+controller drives N shards, shard ``s``'s tensors on the engine's
+``shard_devices()[s]``: node columns split into N equal ranges, each
+label's edges go to the shard that owns their scatter-side endpoint, and a
+hop all-gathers the frontier's columns (one concatenation per distinct
+device, shared by the shards on it), gathers from the full frontier and
+scatters into the shard's own columns.  DBHit and Rows accumulate as
+per-shard partials and are summed once at the end of the program (the
+psum); a closure's convergence flag is the sum over shards.  Every hop of a
+sharded plan is a segment hop.
 
 **The serve path.** :meth:`CompiledPlan.execute_rows` returns per-row
 :class:`RowResult` s (memoized and gathered by the serve engine) and, with
@@ -51,7 +67,8 @@ import torch
 from repro_torch.core.executor import (
     ExecConfig, ExecEngine, Metrics, ReachResult, _active_rows_per_source,
     _hop_cost_per_source, _hop_cost_rows, _hop_dense, _hop_kernel,
-    _hop_segment, _hop_segment_rows, _init_frontier,
+    _hop_segment, _hop_segment_local, _hop_segment_rows,
+    _hop_segment_rows_local, _init_frontier,
 )
 from repro_torch.core.graph import node_pred_mask
 from repro_torch.core.parser import query_fingerprint
@@ -60,7 +77,7 @@ from repro_torch.core.pattern import (
     normalize_preds,
 )
 from repro_torch.core.schema import GraphSchema, NO_LABEL
-from repro_torch.utils import INF_HOPS, host, round_up
+from repro_torch.utils import INF_HOPS, host, host_flag, round_up
 
 
 # ---------------------------------------------------------------------------
@@ -106,6 +123,10 @@ def _choose_backend(engine: ExecEngine, cfg: ExecConfig, label_id: int) -> str:
     ``cfg.plan_backend`` forces a backend when not "auto", and the unfused
     ``backend="dense"`` setting forces dense hops as well.
     """
+    if cfg.data_shards > 1:
+        # shards hold partitioned edge slices; a dense hop would need the
+        # whole [N, N] adjacency on every shard (DESIGN.md §12)
+        return "segment"
     mode = cfg.plan_backend
     if mode and mode != "auto":
         return mode
@@ -125,7 +146,7 @@ def _cfg_snapshot(cfg: ExecConfig) -> tuple:
     against it so in-place cfg mutation takes effect on the next query."""
     return (cfg.plan_backend, cfg.backend, cfg.use_kernel,
             cfg.collect_metrics, cfg.max_closure_iters, cfg.src_block,
-            cfg.dense_node_limit, cfg.dense_density)
+            cfg.dense_node_limit, cfg.dense_density, cfg.data_shards)
 
 
 def block_sizes(rows: int, blk: int, adaptive: bool = False) -> List[int]:
@@ -166,8 +187,8 @@ class RowResult:
         S = int(self.sources.shape[0])
         return ReachResult(
             src_ids=self.sources, reach=self.reach, counting=self.counting,
-            metrics=Metrics(db_hits=S + int(self.db_vec.sum()),
-                            rows=S + int(self.rows_vec.sum())))
+            metrics=Metrics(db_hits=S + int(np.sum(self.db_vec)),
+                            rows=S + int(np.sum(self.rows_vec))))
 
     def covers(self, sources: np.ndarray) -> bool:
         """Is every id of ``sources`` a row of this result?  Requires
@@ -189,20 +210,142 @@ class RowResult:
                          self.rows_vec[idx], self.counting)
 
 
+# a closure reads its convergence flag after its first iteration, then
+# every CLOSURE_SYNC_EVERY iterations.  On the card a flag read costs about
+# a fifth of one more (empty) hop at SNB's shape, so the stride stays short
+# (PERF.md §5 has the numbers behind it)
+CLOSURE_SYNC_EVERY = 2
+
+
+class ShardCols(tuple):
+    """One logical tensor held as per-shard parts, shard ``s``'s on its own
+    device: a frontier's ``[blk, n_loc]`` column blocks, or a per-shard
+    partial metric vector.  Elementwise operators apply part by part, so
+    the hop-range algebra of :func:`_expand_range` runs unchanged."""
+
+    def _zip(self, other, op):
+        return ShardCols(op(x, y) for x, y in zip(self, other))
+
+    def __add__(self, other):
+        return self._zip(other, lambda x, y: x + y)
+
+    def __or__(self, other):
+        return self._zip(other, lambda x, y: x | y)
+
+    def __and__(self, other):
+        return self._zip(other, lambda x, y: x & y)
+
+    def __invert__(self):
+        return ShardCols(~x for x in self)
+
+
+def _zeros_like(F):
+    if isinstance(F, ShardCols):
+        return ShardCols(torch.zeros_like(x) for x in F)
+    return torch.zeros_like(F)
+
+
+def _any_active(F) -> torch.Tensor:
+    """Device bool: does any row of ``F`` hold a set column?  Over shards,
+    the sum of the shards' flags (on the first shard's device)."""
+    if isinstance(F, ShardCols):
+        dev = F[0].device
+        return torch.stack([x.any().to(dev) for x in F]).any()
+    return F.any()
+
+
+def _all_gather(parts: Sequence[torch.Tensor], devs: Sequence) -> Dict:
+    """The frontier's full ``[blk, N_pad]`` columns on every distinct device
+    of ``devs``: one copy of each shard's columns there and one
+    concatenation, shared by all the shards on that device."""
+    return {d: torch.cat([x.to(d) for x in parts], dim=1)
+            for d in dict.fromkeys(devs)}
+
+
+def _shard_init(ids: torch.Tensor, devs: Sequence, n_loc: int,
+                counting: bool):
+    """A sharded program's start: the padded id block on every shard
+    device, each shard's local one-hot frontier columns (a source lands on
+    the shard that owns it), and zero per-shard DBHit/Rows partials."""
+    on = {d: ids.to(d) for d in dict.fromkeys(devs)}
+    blk = ids.shape[0]
+    F = []
+    for s, d in enumerate(devs):
+        lcol = on[d] - s * n_loc
+        mine = (on[d] >= 0) & (lcol >= 0) & (lcol < n_loc)
+        f = torch.zeros((blk, n_loc), device=d,
+                        dtype=torch.int32 if counting else torch.bool)
+        f[torch.arange(blk, device=d), lcol.clamp(0, n_loc - 1).long()] = \
+            mine.to(f.dtype)
+        F.append(f)
+    zeros = ShardCols(torch.zeros(blk, dtype=torch.int64, device=d)
+                      for d in devs)
+    return on, ShardCols(F), zeros, zeros
+
+
+def _shard_hop(Fc, db, rows, step_ops, devs, n_loc: int, counting: bool,
+               collect: bool, seg, cost_fn, skip_db: bool = False):
+    """One sharded expansion hop: the frontier's columns all-gathered once
+    (the only per-hop exchange), then per direction and shard the DBHit
+    partial (``cost_fn`` of the full frontier and the shard's partial
+    degrees) and ``seg``, which gathers from the full frontier and
+    scatters into the shard's own columns.  ``step_ops`` holds one
+    ``(a, b_local, w, mask, deg)`` tuple of per-shard tuples a direction."""
+    full = _all_gather(Fc, devs)
+    out = None
+    for arrs in step_ops:
+        if collect and not skip_db:
+            db = db + ShardCols(cost_fn(full[d], arrs[4][s])
+                                for s, d in enumerate(devs))
+        a, b_local, w, mask = arrs[:4]
+        nxt = ShardCols(seg(full[d], a[s], b_local[s], mask[s], w[s],
+                            counting=counting, n_loc=n_loc)
+                        for s, d in enumerate(devs))
+        out = nxt if out is None else (out + nxt if counting else out | nxt)
+    if collect:
+        rows = rows + ShardCols(_active_rows_per_source(x) for x in out)
+    return out, db, rows
+
+
+def _shard_cost(R, step_ops, devs, cost_fn):
+    """A closure's telescoped DBHit over reach set ``R``, as per-shard
+    partials: the full columns read against each shard's partial
+    degrees."""
+    full = _all_gather(R, devs)
+    out = None
+    for arrs in step_ops:
+        c = ShardCols(cost_fn(full[d], arrs[4][s])
+                      for s, d in enumerate(devs))
+        out = c if out is None else out + c
+    return out
+
+
+def _shard_result(F, db, rows, ok: bool, devs):
+    """F reassembled ``[blk, N_pad]`` on the first shard's device, and the
+    per-shard metric partials summed there (the program's one psum)."""
+    d0 = devs[0]
+    return (torch.cat([f.to(d0) for f in F], dim=1),
+            sum(x.to(d0) for x in db), sum(x.to(d0) for x in rows), ok)
+
+
 def _expand_range(F, db, rows, lo: int, hi: int, hop, cost, counting: bool,
                   collect: bool, max_iters: int):
-    """One expand step's hop range ``[lo, hi]`` over frontier ``F``.
+    """One expand step's hop range ``[lo, hi]`` over frontier ``F`` (a
+    tensor, or :class:`ShardCols` under sharding).
 
     ``hop(F, db, rows, skip_db=False) -> (F', db, rows)`` is one hop;
     ``cost(reach)`` the step's per-row DBHit over a reach set.  Bounded:
     ``acc = Σ/∨ over k in [lo, hi]``; hops past an empty frontier add zero
     to F and both metrics, so no early break is needed for exactness.
     Unbounded: a host loop with the reference's ``max_closure_iters`` bound
-    and convergence flag.  Successive closure frontiers are pairwise
-    disjoint with union equal to the converged reach set, so the closure's
-    DBHit telescopes to one ``cost(reach)``; a non-converged exit
-    over-counts the residual frontier, but the caller raises before it
-    surfaces.  Returns ``(F, db, rows, converged)``."""
+    that reads the "frontier is empty" flag after its first iteration and
+    then every ``CLOSURE_SYNC_EVERY``, and never hops past the bound; hops
+    after the frontier empties add zero to reach and Rows (and skip DBHit),
+    so the answer is the reference's.  Successive closure
+    frontiers are pairwise disjoint with union equal to the converged reach
+    set, so the closure's DBHit telescopes to one ``cost(reach)``; a
+    non-converged exit over-counts the residual frontier, but the caller
+    raises before it surfaces.  Returns ``(F, db, rows, converged)``."""
     if hi != INF_HOPS:
         acc = F if lo == 0 else None
         cur = F
@@ -211,20 +354,27 @@ def _expand_range(F, db, rows, lo: int, hi: int, hop, cost, counting: bool,
             if k >= lo:
                 acc = cur if acc is None else (
                     acc + cur if counting else acc | cur)
-        F = acc if acc is not None else torch.zeros_like(F)
+        F = acc if acc is not None else _zeros_like(F)
         return F, db, rows, True
     cur = F
     for _ in range(max(lo, 0)):
         cur, db, rows = hop(cur, db, rows)
     reach, frontier = cur, cur
-    i = 0
-    while i < max_iters and bool(frontier.any()):
-        nxt, db, rows = hop(frontier, db, rows, skip_db=True)
-        reach, frontier = reach | nxt, nxt & ~reach
-        i += 1
+    i, stride = 0, 1
+    converged = max_iters > 0 or not host_flag(_any_active(frontier))
+    while i < max_iters:
+        n = min(stride, max_iters - i)
+        for _ in range(n):
+            nxt, db, rows = hop(frontier, db, rows, skip_db=True)
+            reach, frontier = reach | nxt, nxt & ~reach
+        i += n
+        converged = not host_flag(_any_active(frontier))
+        if converged:
+            break
+        stride = CLOSURE_SYNC_EVERY
     if collect:
         db = db + cost(reach)
-    return reach, db, rows, not bool(frontier.any())
+    return reach, db, rows, converged
 
 
 # ---------------------------------------------------------------------------
@@ -299,6 +449,21 @@ class CompiledPlan:
 
     # -- the program -------------------------------------------------------
 
+    def _filter(self, F, step: FilterStep, node_label, node_key,
+                node_alive, nprops):
+        """F masked to the columns whose nodes pass ``step`` (node arrays
+        and ``nprops`` cover F's columns: the whole arena, or a shard's)."""
+        m = node_alive
+        if step.label_id != NO_LABEL:
+            m = m & (node_label == step.label_id)
+        if step.key is not None:
+            m = m & (node_key == step.key)
+        for p in step.preds:
+            m = m & _cmp(nprops[self._nprop_names.index(p.prop)],
+                         p.op, p.value)
+        return (torch.where(m[None, :], F, 0) if self.counting
+                else F & m[None, :])
+
     def _program(self, ids, node_label, node_key, node_alive, nprops,
                  operands):
         """The whole query for one source block.
@@ -341,16 +506,8 @@ class CompiledPlan:
         op_i = 0
         for step in self.steps:
             if isinstance(step, FilterStep):
-                m = node_alive
-                if step.label_id != NO_LABEL:
-                    m = m & (node_label == step.label_id)
-                if step.key is not None:
-                    m = m & (node_key == step.key)
-                for p in step.preds:
-                    m = m & _cmp(nprops[self._nprop_names.index(p.prop)],
-                                 p.op, p.value)
-                F = (torch.where(m[None, :], F, 0) if counting
-                     else F & m[None, :])
+                F = self._filter(F, step, node_label, node_key, node_alive,
+                                 nprops)
                 continue
             step_ops = operands[op_i]
             op_i += 1
@@ -364,6 +521,45 @@ class CompiledPlan:
                 counting, collect, self.cfg.max_closure_iters)
             ok = ok and converged
         return F, db, rows, ok
+
+    def _program_sharded(self, ids, node_label, node_key, node_alive,
+                         nprops, operands):
+        """:meth:`_program` over the engine's shards, in one controller.
+
+        Node arrays arrive as per-shard ``[n_loc]`` column tuples, each
+        edge operand as the per-shard tuple of the shard's partition, and F
+        is a :class:`ShardCols` of ``[blk, n_loc]`` blocks (hops:
+        :func:`_shard_hop`).  DBHit/Rows accumulate as per-shard partials
+        (partial degree vectors, local-column row counts) and are summed
+        once at the end, so they equal :meth:`_program`'s exactly.
+        Returns F reassembled ``[blk, N_pad]`` on the first shard's device,
+        with the summed metric vectors."""
+        counting = self.counting
+        collect = self.cfg.collect_metrics
+        devs = self.engine.shard_devices()
+        n_loc = node_label[0].shape[0]
+        _, F, db, rows = _shard_init(ids, devs, n_loc, counting)
+        ok = True
+        op_i = 0
+        for step in self.steps:
+            if isinstance(step, FilterStep):
+                F = ShardCols(self._filter(
+                    f, step, node_label[s], node_key[s], node_alive[s],
+                    tuple(c[s] for c in nprops)) for s, f in enumerate(F))
+                continue
+            step_ops = operands[op_i]
+            op_i += 1
+            F, db, rows, converged = _expand_range(
+                F, db, rows, step.min_hops, step.max_hops,
+                functools.partial(
+                    _shard_hop, step_ops=step_ops, devs=devs, n_loc=n_loc,
+                    counting=counting, collect=collect,
+                    seg=_hop_segment_local, cost_fn=_hop_cost_per_source),
+                functools.partial(_shard_cost, step_ops=step_ops, devs=devs,
+                                  cost_fn=_hop_cost_per_source),
+                counting, collect, self.cfg.max_closure_iters)
+            ok = ok and converged
+        return _shard_result(F, db, rows, ok, devs)
 
     # -- operands ----------------------------------------------------------
 
@@ -387,6 +583,16 @@ class CompiledPlan:
                                             rev, step.preds), deg))
             out.append(tuple(per_dir))
         return tuple(out)
+
+    def _gather_operands_sharded(self):
+        """Sharded counterpart of :meth:`_gather_operands`: per expand step,
+        per direction, the engine's cached dst-partitioned operands, shard
+        by shard on the shards' devices."""
+        eng = self.engine
+        return tuple(
+            tuple(eng.sharded_label_edges(step.label_id, rev, step.preds)
+                  for rev in step.reverses)
+            for step in self.steps if isinstance(step, ExpandStep))
 
     # -- execution ---------------------------------------------------------
 
@@ -427,13 +633,23 @@ class CompiledPlan:
         if R:
             padded[:R] = np.concatenate(
                 [np.asarray(s, np.int32) for s in source_lists])
-        nprops = tuple(g.node_prop_col(name) for name in self._nprop_names)
-        operands = self._gather_operands()
-
+        if self.cfg.data_shards > 1:
+            eng = self.engine
+            node_label, node_key, node_alive, nprops = \
+                eng.sharded_node_data(self._nprop_names)
+            operands = self._gather_operands_sharded()
+            program, dev = self._program_sharded, eng.shard_devices()[0]
+        else:
+            node_label, node_key, node_alive = (g.node_label, g.node_key,
+                                                g.node_alive)
+            nprops = tuple(g.node_prop_col(name)
+                           for name in self._nprop_names)
+            operands = self._gather_operands()
+            program, dev = self._program, g.device
         reach, db_vec, rows_vec = _run_blocks(
-            lambda ids: self._program(ids, g.node_label, g.node_key,
-                                      g.node_alive, nprops, operands),
-            sizes, (padded,), g.device, R)
+            lambda ids: program(ids, node_label, node_key, node_alive,
+                                nprops, operands),
+            sizes, (padded,), dev, R, g.node_cap)
         results: List[RowResult] = []
         off = 0
         for srcs, S in zip(source_lists, counts):
@@ -507,27 +723,61 @@ class CompiledPlan:
                 expands.append(tuple(per_dir))
         return tuple(masks), tuple(expands)
 
+    def _gather_shared_operands_sharded(self):
+        """Sharded counterpart of :meth:`_gather_shared_operands`: node
+        masks padded to ``[N_pad]`` and the dst-partitioned per-shard edge
+        tuples per expand direction; the sharded :class:`SharedProgram`
+        stacks members shard by shard."""
+        eng = self.engine
+        g = eng.g
+        masks, expands = [], []
+        for step in self.steps:
+            if isinstance(step, FilterStep):
+                m = g.node_mask(step.label_id, step.key)
+                if step.preds:
+                    m = m & node_pred_mask(g, step.preds)
+                masks.append(eng.padded_node_mask(m))
+            else:
+                expands.append(tuple(
+                    eng.sharded_label_edges(step.label_id, rev, step.preds)
+                    for rev in step.reverses))
+        return tuple(masks), tuple(expands)
+
 
 def _run_blocks(fn, sizes: Sequence[int], row_ops: Sequence[np.ndarray],
-                device, R: int):
+                device, R: int, width: int):
     """Run ``fn`` over consecutive ``sizes`` blocks of the padded per-row
-    arrays ``row_ops`` and bring back (reach [R, N] int32, db_vec, rows_vec);
-    raises if a closure did not converge."""
-    out_rows, db_parts, row_parts = [], [], []
+    arrays ``row_ops`` and bring back (reach [R, width] int32, db_vec,
+    rows_vec); raises if a closure did not converge.
+
+    The per-row arrays go to the device once.  Each block writes its F
+    into one ``[R_pad, N]`` device tensor and its metric vectors into
+    ``[R_pad]`` int64 device vectors (no concatenation, so no second
+    copy); after the last block one :func:`host` call pulls the rows
+    (sliced to ``[:R, :width]``: sharded F carries pad columns) and the
+    metrics — one pull per batch, whatever the block count."""
+    ops_dev = [torch.from_numpy(a).to(device) for a in row_ops]
+    R_pad = sum(sizes)
+    db_all = torch.zeros(R_pad, dtype=torch.int64, device=device)
+    rows_all = torch.zeros(R_pad, dtype=torch.int64, device=device)
+    reach_all = None
     converged = True
     b0 = 0
     for blk in sizes:
-        F, db, rows, ok = fn(*(torch.from_numpy(a[b0:b0 + blk]).to(device)
-                               for a in row_ops))
-        out_rows.append(host(F))
-        db_parts.append(host(db))
-        row_parts.append(host(rows))
+        F, db, rows, ok = fn(*(a[b0:b0 + blk] for a in ops_dev))
+        if reach_all is None:
+            reach_all = torch.empty((R_pad, F.shape[1]), dtype=F.dtype,
+                                    device=device)
+        reach_all[b0:b0 + blk] = F
+        db_all[b0:b0 + blk] = db
+        rows_all[b0:b0 + blk] = rows
         converged = converged and ok
         b0 += blk
     if not converged:
         raise RuntimeError("closure did not converge within max_closure_iters")
-    reach = np.concatenate(out_rows, axis=0)[:R].astype(np.int32)
-    return reach, np.concatenate(db_parts)[:R], np.concatenate(row_parts)[:R]
+    reach, met = host(reach_all[:R, :width],
+                      torch.stack([db_all[:R], rows_all[:R]]))
+    return reach.astype(np.int32), met[0], met[1]
 
 
 # ---------------------------------------------------------------------------
@@ -554,11 +804,14 @@ class SharedProgram:
     """
 
     def __init__(self, counting: bool, collect_metrics: bool,
-                 max_closure_iters: int, steps_sig: Tuple[tuple, ...]):
+                 max_closure_iters: int, steps_sig: Tuple[tuple, ...],
+                 engine: Optional[ExecEngine] = None, data_shards: int = 1):
         self.counting = counting
         self.collect = collect_metrics
         self.max_closure_iters = max_closure_iters
         self.steps_sig = steps_sig
+        self.engine = engine
+        self.data_shards = data_shards
 
     def _program(self, ids, midx, masks, operands):
         """One source block: ``ids`` [blk] (-1 padding), ``midx`` [blk]
@@ -609,6 +862,46 @@ class SharedProgram:
             ok = ok and converged
         return F, db, rows, ok
 
+    def _program_sharded(self, ids, midx, masks, operands):
+        """:meth:`_program` over the engine's shards: ``masks`` arrive as
+        per-shard ``[M, n_loc]`` column tuples, each edge stack as the
+        per-shard tuple of ``[M, Ep]`` partitions (deg ``[M, N_pad]``), and
+        rows scatter into their shard's columns only.  Metric partials and
+        closure convergence follow :meth:`CompiledPlan._program_sharded`."""
+        counting, collect = self.counting, self.collect
+        devs = self.engine.shard_devices()
+        n_loc = (masks[0][0].shape[1] if masks
+                 else operands[0][0][4][0].shape[1] // len(devs))
+        on, F, db, rows = _shard_init(ids, devs, n_loc, counting)
+        midx_on = {d: midx.to(d) for d in on}
+        ok = True
+        mi = oi = 0
+        for sig in self.steps_sig:
+            if sig[0] == "f":
+                ms = [masks[mi][s][midx_on[d]] for s, d in enumerate(devs)]
+                mi += 1
+                F = ShardCols(torch.where(m, f, 0) if counting else f & m
+                              for f, m in zip(F, ms))
+                continue
+            _, ndirs, lo, hi = sig
+            # member-select each shard's operands once per step
+            step_rows = tuple(
+                tuple(tuple(arr[s][midx_on[d]] for s, d in enumerate(devs))
+                      for arr in operands[oi][di])
+                for di in range(ndirs))
+            oi += 1
+            F, db, rows, converged = _expand_range(
+                F, db, rows, lo, hi,
+                functools.partial(
+                    _shard_hop, step_ops=step_rows, devs=devs, n_loc=n_loc,
+                    counting=counting, collect=collect,
+                    seg=_hop_segment_rows_local, cost_fn=_hop_cost_rows),
+                functools.partial(_shard_cost, step_ops=step_rows, devs=devs,
+                                  cost_fn=_hop_cost_rows),
+                counting, collect, self.max_closure_iters)
+            ok = ok and converged
+        return _shard_result(F, db, rows, ok, devs)
+
     def execute(self, plans: Sequence[CompiledPlan],
                 spec_lists: Sequence[Sequence[np.ndarray]], *,
                 adaptive_blocks: bool = True) -> List[List[RowResult]]:
@@ -619,16 +912,26 @@ class SharedProgram:
         tagged with its member index.  Returns per-plan lists of
         :class:`RowResult` matching ``spec_lists``."""
         cfg = plans[0].cfg
-        dev = plans[0].engine.device
+        eng = plans[0].engine
         M = len(plans)
         M_pad = 1 << max(M - 1, 1).bit_length()    # pow2 >= M, min 2
-        gathered = [p._gather_shared_operands() for p in plans]
+        sharded = self.data_shards > 1
+        gathered = [p._gather_shared_operands_sharded() if sharded
+                    else p._gather_shared_operands() for p in plans]
+
+        def stack(arrs, E=None):
+            """Members (edge operands padded to E) stacked, then padded to
+            M_pad members with member 0's operands."""
+            if E is not None:
+                arrs = [torch.nn.functional.pad(a, (0, E - int(a.shape[0])))
+                        for a in arrs]
+            return torch.stack(arrs + [arrs[0]] * (M_pad - M))
 
         n_filters = sum(1 for s in self.steps_sig if s[0] == "f")
         masks_st = []
         for fi in range(n_filters):
-            ms = [gathered[m][0][fi] for m in range(M)]
-            masks_st.append(torch.stack(ms + [ms[0]] * (M_pad - M)))
+            st = stack([gathered[m][0][fi] for m in range(M)])
+            masks_st.append(eng.shard_put_mask_stack(st) if sharded else st)
 
         ops_st = []
         n_expands = sum(1 for s in self.steps_sig if s[0] == "x")
@@ -640,14 +943,20 @@ class SharedProgram:
                 # recurring shapes recur across windows; members share a
                 # log2 scale, so padding stays within the bucket's 2x bound
                 # (padded edges are masked off: exact no-ops)
+                if sharded:   # each operand a per-shard tuple of [Ep] rows
+                    E_max = max(int(c[0][0].shape[0]) for c in cols)
+                    E = 1 << max(E_max - 1, 1).bit_length()
+                    per_dir.append(tuple(
+                        tuple(stack([c[j][s] for c in cols],
+                                    E if j < 4 else None)
+                              for s in range(self.data_shards))
+                        for j in range(5)))      # a, b_local, w, mask, deg
+                    continue
                 E_max = max(int(c[0].shape[0]) for c in cols)
                 E = 1 << max(E_max - 1, 1).bit_length()
-                stacked = []
-                for j in range(5):          # src, dst, ew, emask, deg
-                    arrs = [c[j] if j == 4 else torch.nn.functional.pad(
-                        c[j], (0, E - int(c[j].shape[0]))) for c in cols]
-                    stacked.append(torch.stack(arrs + [arrs[0]] * (M_pad - M)))
-                per_dir.append(tuple(stacked))
+                per_dir.append(tuple(
+                    stack([c[j] for c in cols], E if j < 4 else None)
+                    for j in range(5)))          # src, dst, ew, emask, deg
             ops_st.append(tuple(per_dir))
         masks_st, ops_st = tuple(masks_st), tuple(ops_st)
 
@@ -669,9 +978,11 @@ class SharedProgram:
         if R:
             ids[:R] = np.concatenate(src_parts)
             midx[:R] = np.concatenate(midx_parts)
+        program = self._program_sharded if sharded else self._program
+        dev = eng.shard_devices()[0] if sharded else eng.device
         reach, db_vec, rows_vec = _run_blocks(
-            lambda i, mi: self._program(i, mi, masks_st, ops_st),
-            sizes, (ids, midx), dev, R)
+            lambda i, mi: program(i, mi, masks_st, ops_st),
+            sizes, (ids, midx), dev, R, eng.g.node_cap)
         results: List[List[RowResult]] = [[] for _ in plans]
         for src, (m, off, S) in zip(src_parts, layout):
             results[m].append(RowResult(
@@ -717,7 +1028,7 @@ class QueryPlanner:
         Returns ``(plan, rewrite_seconds spent on this call)``."""
         self.plan_calls += 1
         fp = query_fingerprint(q, self.schema)
-        use_views = bool(views)
+        use_views = len(views) > 0
         key = (fp, use_views)
         cached = self._plans.get(key)
         if cached is not None and cached.is_valid(view_gen):
@@ -756,8 +1067,11 @@ class QueryPlanner:
     def shared_program(self, key: tuple) -> SharedProgram:
         """The session-lifetime :class:`SharedProgram` for a structure key
         (:meth:`CompiledPlan.structure_key`).  Labels and predicates are
-        operands, so label epochs never stale it."""
-        sp = self._shared.get(key)
+        operands, so label epochs never stale it.  Sharded sessions get a
+        sharded program, cached apart (keyed on the shard count)."""
+        shards = max(self.cfg.data_shards, 1)
+        sp = self._shared.get((key, shards))
         if sp is None:
-            sp = self._shared[key] = SharedProgram(*key)
+            sp = self._shared[(key, shards)] = SharedProgram(
+                *key, engine=self.engine, data_shards=shards)
         return sp

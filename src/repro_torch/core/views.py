@@ -26,7 +26,7 @@ from __future__ import annotations
 import time
 import weakref
 from dataclasses import dataclass, field
-from typing import Dict, Iterable, List, Optional, Tuple, Union
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -232,11 +232,18 @@ class GraphSession:
     runs on one session-persistent engine with label-granular invalidation;
     the old/mid graph sides of telescoped deltas run on engine snapshots
     that share every still-valid cache entry.
+
+    With ``ExecConfig(data_shards=N)`` compiled plans run sharded over
+    ``shard_devices`` (shard ``s`` on ``shard_devices[s]``).  When it is
+    ``None``, a session on the host takes ``["cpu"] * N`` and a session on
+    the card the first N visible cards, raising when fewer are visible; N
+    shards on one card must be asked for, ``shard_devices=["cuda:0"] * N``.
     """
 
     def __init__(self, g: G.PropertyGraph, schema: GraphSchema,
                  cfg: Optional[ExecConfig] = None, auto_optimize: bool = True,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 shard_devices: Optional[Sequence] = None):
         dev = resolve_device(device)
         if g.device != dev:
             g = g.to(dev)
@@ -246,7 +253,12 @@ class GraphSession:
         self.views: Dict[str, MaterializedView] = {}
         self.last_maintenance_metrics = Metrics()
         self.last_rewrite_seconds = 0.0
-        self.engine = ExecEngine(g, schema, self.cfg)
+        self.engine = ExecEngine(g, schema, self.cfg,
+                                 shard_devices=shard_devices)
+        if self.cfg.data_shards > 1:
+            # the shard devices are resolved now: too few cards raise here
+            # rather than at the first read (nothing folds shards silently)
+            self.engine.mesh()
         # compiled-plan layer (core/plan.py): reads compile once per distinct
         # query shape; the view-set generation is a plan/rewrite-cache
         # invalidation key bumped by create_view/drop_view
@@ -863,6 +875,13 @@ class GraphSession:
                         ex_pre=self._delta, ex_suf=self._delta,
                         edge_ids=eids)
                     self._apply_union(view, endpoints_alive(delta))
+            if (self.cfg.data_shards > 1
+                    and (node_del.size
+                         or any(self._uses_label(view, name)
+                                for name, _, _, _ in
+                                del_groups + create_groups))):
+                # exact maintenance swept this view: route to its owner
+                self.engine.note_shard_sweep(view.label_id)
             view.stats.e_vl = len(view.pair_slot)
 
         # -- step 5: property updates  g3 -> g4 (the prop-update write kind)
@@ -1085,6 +1104,9 @@ class GraphSession:
         pending.clear()
         if affected.size:
             self._recompute_sources(view, affected, metrics, ex=self._delta)
+        if self.cfg.data_shards > 1:
+            # sharded: this sweep is anchored to the label's owner shard
+            self.engine.note_shard_sweep(view.label_id)
         view.stats.e_vl = len(view.pair_slot)
         for eng in list(self._serve_engines):
             eng._on_view_drained(view)
@@ -1146,7 +1168,8 @@ class GraphSession:
         """Drain queued maintenance deltas now — one view by ``name``, or
         every view when ``name`` is None (serve fences and tests use the
         latter as the global synchronization point).  Returns True if any
-        deltas were replayed."""
+        deltas were replayed.  Sharded sessions visit views grouped by their
+        label's owner shard (see maintenance.owner_order)."""
         metrics = Metrics()
         if name is not None:
             if name not in self.views:
@@ -1154,6 +1177,9 @@ class GraphSession:
             views = [self.views[name]]
         else:
             views = list(self.views.values())
+            if self.cfg.data_shards > 1:
+                from repro_torch.core.maintenance import owner_order
+                views = owner_order(views, self.engine.n_shards)
         out = False
         for view in views:
             out = self._drain_view(view, metrics) or out

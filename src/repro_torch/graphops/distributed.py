@@ -1,0 +1,97 @@
+"""Host-side edge partitioning for sharded execution (numpy).
+
+Sharded plans split node columns into ``n_shards`` equal ranges and give
+each shard the edges whose **scatter-side** endpoint it owns, so a hop
+gathers from the full (all-gathered) frontier and scatters into local
+columns only: no cross-shard scatter exists.  Maintenance routing anchors
+each label's delta sweeps to an owner shard.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+
+
+def shard_owner(label_id: int, n_shards: int) -> int:
+    """Deterministic owner shard for a label's maintenance routing.
+
+    Edge *data* is dst-partitioned across every shard (see
+    :func:`partition_hop_edges`); the owner shard is the scheduling anchor:
+    delta sweeps and drain batches for a label group under its owner so
+    maintenance work spreads round-robin over the shards."""
+    return int(label_id) % max(int(n_shards), 1)
+
+
+def partition_hop_edges(gather_ids: np.ndarray, scatter_ids: np.ndarray,
+                        weights: np.ndarray, n_pad: int, n_shards: int
+                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                   np.ndarray, np.ndarray]:
+    """Dst-partition of one hop's compact edge slice.
+
+    Edges go to the owner of their scatter-side endpoint (the hop's
+    traversal destination; callers pass ``(dst, src)`` swapped for reverse
+    hops).  Returns stacked per-shard arrays, padded to a uniform per-shard
+    width (padding slots are masked off — exact no-ops):
+
+      * ``a``        [D, Ep]  gather-side endpoint, **global** node id
+      * ``b_local``  [D, Ep]  scatter-side endpoint minus the shard offset,
+                              in ``[0, n_loc)``
+      * ``w``        [D, Ep]  edge weights
+      * ``mask``     [D, Ep]  real-edge mask
+      * ``deg``      [D, N_pad] partial degree by gather-side endpoint over
+                              the shard's own edges; the partials sum to
+                              the single-device degree vector exactly.
+
+    ``n_pad`` is the node-column capacity padded to a multiple of
+    ``n_shards`` (``n_loc = n_pad // n_shards``).
+    """
+    gather_ids = np.asarray(gather_ids, np.int32)
+    scatter_ids = np.asarray(scatter_ids, np.int32)
+    weights = np.asarray(weights, np.int32)
+    if n_pad % n_shards != 0:
+        raise ValueError(f"n_pad={n_pad} not a multiple of n_shards={n_shards}")
+    n_loc = n_pad // n_shards
+    owner = np.minimum(scatter_ids // n_loc, n_shards - 1)
+    order = np.argsort(owner, kind="stable")
+    counts = np.bincount(owner, minlength=n_shards)
+    width = max(int(counts.max()) if counts.size else 0, 1)
+    a = np.zeros((n_shards, width), np.int32)
+    b_local = np.zeros((n_shards, width), np.int32)
+    w = np.zeros((n_shards, width), np.int32)
+    mask = np.zeros((n_shards, width), bool)
+    deg = np.zeros((n_shards, n_pad), np.int32)
+    start = 0
+    for s in range(n_shards):
+        c = int(counts[s])
+        sl = order[start:start + c]
+        a[s, :c] = gather_ids[sl]
+        b_local[s, :c] = scatter_ids[sl] - s * n_loc
+        w[s, :c] = weights[sl]
+        mask[s, :c] = True
+        np.add.at(deg[s], gather_ids[sl], 1)
+        start += c
+    return a, b_local, w, mask, deg
+
+
+def partition_edges_by_dst(src: np.ndarray, dst: np.ndarray, n_nodes: int,
+                           n_shards: int
+                           ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Order edges so shard i holds edges whose dst is in node shard i,
+    padded per shard to a uniform length (returns perm, mask, counts)."""
+    n_loc = n_nodes // n_shards
+    owner = np.minimum(dst // n_loc, n_shards - 1)
+    order = np.argsort(owner, kind="stable")
+    counts = np.bincount(owner, minlength=n_shards)
+    width = int(counts.max()) if counts.size else 1
+    E_pad = width * n_shards
+    perm = np.zeros(E_pad, np.int64)
+    mask = np.zeros(E_pad, bool)
+    start = 0
+    for s in range(n_shards):
+        c = counts[s]
+        sl = order[start:start + c]
+        perm[s * width: s * width + c] = sl
+        mask[s * width: s * width + c] = True
+        start += c
+    return perm, mask, counts

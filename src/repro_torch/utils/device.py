@@ -1,9 +1,11 @@
-"""Device resolution and the one device-to-host pull.
+"""Device resolution and the device-to-host pulls.
 
 Entry points run on the card unless the caller asks for the CPU: ``None``
 resolves to ``cuda`` and raises when no CUDA device exists — there is no
 silent fallback to the host.  Every read of device state into numpy goes
-through :func:`host`, so host syncs are visible in one place.
+through :func:`host`, and every read of a scalar flag through
+:func:`host_flag`, so host syncs are visible in one place: each counts its
+calls (``host.calls``, ``host_flag.calls``).
 """
 from __future__ import annotations
 
@@ -26,8 +28,31 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
-def host(x) -> np.ndarray:
-    """Device tensor (or array-like) -> numpy, one copy per call."""
+def _pull(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def host(*xs):
+    """Device tensors (or array-likes) -> numpy: one array for one
+    argument, a tuple for several.  One call is one counted pull: the
+    first copy waits for the device, the rest of the call's copies find
+    it idle."""
+    host.calls += 1
+    if len(xs) == 1:
+        return _pull(xs[0])
+    return tuple(_pull(x) for x in xs)
+
+
+def host_flag(x) -> bool:
+    """A device scalar (a flag or a count) read as a Python bool, for the
+    host to branch on; counted apart from :func:`host`."""
+    host_flag.calls += 1
+    if isinstance(x, torch.Tensor):
+        return bool(x.item())
+    return bool(x)
+
+
+host.calls = 0
+host_flag.calls = 0

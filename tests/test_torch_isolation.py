@@ -43,7 +43,8 @@ def test_port_has_the_slice_modules():
                  "core.selection", "core.online_selection", "serve.engine",
                  "graphops.sampler", "graphops.view_subgraph",
                  "models.common", "models.gnn.graphdata", "models.gnn.sage",
-                 "launch.gnn", "mv4pg"):
+                 "launch.gnn", "mv4pg", "graphops.distributed",
+                 "launch.mesh"):
         assert f"repro_torch.{name}" in mods, name
     for src in ("block_spmm", "segment_agg", "flash_attention"):
         assert (PORT / "kernels" / "csrc" / f"{src}.cu").is_file(), src
@@ -113,6 +114,64 @@ def test_no_numpy_pull_of_a_graph_field(path):
                 f"field with np.{node.func.attr}"
 
 
+# modules whose device-to-host reads must all go through host()/host_flag()
+SYNC_COUNTED = ("core/plan.py",)
+
+
+def _sync_free_arg(arg) -> bool:
+    """May ``int(arg)``/``bool(arg)`` stand in a sync-counted module?  Only
+    where ``arg`` cannot be a device tensor: a shape, ``len(...)``, a numpy
+    call or a constant."""
+    if isinstance(arg, ast.Constant):
+        return True
+    if any(isinstance(n, ast.Attribute) and n.attr == "shape"
+           for n in ast.walk(arg)):
+        return True
+    if isinstance(arg, ast.Call):
+        f = arg.func
+        if isinstance(f, ast.Name) and f.id == "len":
+            return True
+        while isinstance(f, ast.Attribute):
+            f = f.value
+        return isinstance(f, ast.Name) and f.id in ("np", "numpy")
+    return False
+
+
+@pytest.mark.parametrize("rel", SYNC_COUNTED)
+def test_no_bare_device_read_in_the_plans(rel):
+    """Compiled plans read device state only through ``host()`` (the batch
+    pull) and ``host_flag()`` (the closure's flag), both counted: no
+    ``.item()``, ``.tolist()``, ``.cpu()`` or ``.numpy()``, and no
+    ``bool(t)``/``int(t)``/``float(t)`` of anything that may be a tensor."""
+    path = PORT / rel
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Call):
+            continue
+        f = node.func
+        where = f"{path.relative_to(ROOT)}:{node.lineno}"
+        if isinstance(f, ast.Attribute):
+            assert f.attr not in ("item", "tolist", "cpu", "numpy"), \
+                f"{where} reads the device with .{f.attr}()"
+        if isinstance(f, ast.Name) and f.id in ("bool", "int", "float"):
+            assert node.args and _sync_free_arg(node.args[0]), \
+                f"{where} calls {f.id}() on what may be a tensor"
+
+
+def test_sync_rule_catches_bare_reads():
+    """The rule above refuses the reads it is meant to refuse."""
+    for bad in ("bool(frontier.any())", "int(x.sum())", "t.item()",
+                "bool(flag)", "float(ms)"):
+        call = ast.parse(bad).body[0].value
+        f = call.func
+        refused = ((isinstance(f, ast.Attribute) and f.attr == "item")
+                   or not _sync_free_arg(call.args[0]))
+        assert refused, bad
+    for ok in ("int(a.shape[0])", "int(np.sum(v))", "bool(len(x))",
+               "int(3)"):
+        assert _sync_free_arg(ast.parse(ok).body[0].value.args[0]), ok
+
+
 _BLOCKED = """
 import importlib, importlib.util, sys
 for name in {forbidden!r}:
@@ -170,9 +229,35 @@ def test_chip_smoke_phases_rehearse_on_cpu():
     spec = importlib.util.spec_from_file_location("chip_smoke", SMOKE)
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    assert smoke.snb_phase(0.02, device="cpu")["nodes"] > 0
-    assert smoke.finbench_phase(0.02, device="cpu") == {
-        "max_memory_allocated": None}
+    snb = smoke.snb_phase(0.02, device="cpu", repeats=1)
+    assert snb["nodes"] > 0
+    fin = smoke.finbench_phase(0.02, device="cpu", repeats=1)
+    assert fin["max_memory_allocated"] is None
+    for rec in (snb["times"], fin["times"]):
+        assert len(rec["read_without_s"]) == len(rec["read_with_s"]) == 7
+        assert len(rec["view_s"]) == 3
+        assert set(rec["writes"]) == {"CE", "DE", "DV"}
+        assert all(t["with_s"] > 0 and t["without_s"] > 0
+                   for t in rec["writes"].values())
+
+
+def test_chip_smoke_sharded_phase_rehearses_on_cpu():
+    """Phase 9 at a tiny scale on the host, 4 shards on the CPU: every read
+    of the sharded session equal to the unsharded one's without and with
+    views, the views consistent and equal after CE/DE/DV, sweeps routed to
+    the views' owner shards, and a cut of the serve script with every
+    ticket and the shared groups equal."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke", SMOKE)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    rec = smoke.sharded_phase(0.02, "cpu", clients=2, rounds=1)
+    assert rec["shard_devices"] == ["cpu"] * smoke.SHARDS
+    assert rec["n_loc"] * smoke.SHARDS >= rec["node_cap"]
+    assert len(rec["reads"]) == 14
+    assert rec["sweeps_by_owner"]
+    assert set(rec["sweeps_by_owner"]) <= set(rec["view_owners"].values())
+    assert rec["shared_groups"] > 0 and rec["serve_queries"] == 7 * 3
 
 
 def test_chip_smoke_serve_phase_rehearses_on_cpu():
