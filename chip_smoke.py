@@ -66,16 +66,31 @@ Phases:
      sweeps by owner shard, its seconds and its peak device memory, and
      one ``torch.profiler`` trace of the unsharded session's SNB Q1, a
      full read from Comment (device busy share, device-to-host copy time,
-     syncs), taken here as the smoke's last profiler use.
+     syncs), taken here as the smoke's last profiler use;
+ 10. the side stacks: (a) PNA at full width on a padded random graph of
+     2,708 nodes and 10,556 edges, forward pass, loss and gradient on the
+     card equal to the CPU's, timed; PNA's aggregation (segment ops, the
+     path PNA takes) held to ``segment_multi_agg`` at the SNB x10 messages
+     of phase 5 and timed beside it; (b) starcoder2-3b at full width
+     (4.16 B parameters, bf16, drawn on the card from a seed) served by the
+     LLM engine, 8 requests through 4 slots, every request at its length
+     and a repeated prompt giving the same output, with prefill and decode
+     times, tokens/s, peak memory and the decode step's byte bound; then
+     ``chunked_attention`` at the prefill shape beside ``flash_attention``
+     and SDPA; (c) starcoder2-3b and qwen2-moe-a2.7b at full width cut to 2
+     layers in fp32, prefill and decode steps on the card equal to the CPU,
+     and the 4-slot engine's outputs equal to each request served alone.
 
-``python3 chip_smoke.py --only=snb,finbench,sharded`` runs the named
-phases alone (after the build) and prints no result line.
+``python3 chip_smoke.py --only=snb,finbench,sharded,pna,llm`` runs the
+named phases alone (after the build; ``pna`` and ``llm`` are phase 10's
+halves) and prints no result line.
 
 Each kernel's launch count is zeroed just before its main path and read
 just after it: phases 3-4, the serve run of 7b and phase 8's path for
 ``block_spmm``, the ends of phases 5 and 6 for the others (comparison
 launches do not count); phase 9, whose hops are all segment hops, must
-launch none.  ``block_spmm`` and
+launch none, and phase 10, whose reference modules call no kernel, must
+launch none either.  ``block_spmm`` and
 ``flash_attention`` also count launches by route: ``tc`` (tensor cores)
 and ``fp32`` (CUDA cores).  Every failed check raises, so the script exits
 non-zero and prints no result line.  It needs one CUDA device; without one
@@ -175,6 +190,30 @@ KNOWS2_DDL = ("CREATE VIEW KNOWS2 AS (CONSTRUCT (a)-[r:KNOWS2]->(b) "
 # (rtol, atol): SAGE through block_spmm against its segment path, the
 # reference's own tolerance for its Pallas path (tests/test_view_gnn.py)
 EMBED_TOL = (2e-4, 2e-4)
+# phase 10: PNA at full width (configs/pna.py) on a random graph of
+# full_graph_sm's size (configs/shapes.py: 2,708 nodes, 10,556 edges, 1,433
+# features); starcoder2-3b at full width served by the LLM engine (4 slots,
+# max_len 1,024, 8 requests of 64-512 prompt tokens, 32 new tokens each);
+# card-against-CPU parity at full width cut to 2 layers in fp32, on prompts
+# of PARITY_PROMPT tokens
+PNA_GRAPH = (2708, 10556)
+LLM_SLOTS = 4
+LLM_MAX_LEN = 1024
+LLM_REQUESTS = 8
+LLM_PROMPT_LENS = (64, 512)
+LLM_NEW_TOKENS = 32
+PARITY_LAYERS = 2
+PARITY_PROMPT = 96
+# (rtol, atol as a share of the CPU value's largest magnitude): the card
+# against the CPU in fp32, where only the summation orders differ (cuBLAS
+# against the CPU's GEMMs, atomic scatter sums).  PNA's gradient gets a
+# wider atol: ReLU derivatives and max/min selections are discontinuous, so
+# another summation order can flip a pre-activation near zero or a near tie
+# and move gradient mass.  A parting of two greedy outputs is taken only
+# where the top two logits lie within NEAR_TIE of the logit scale.
+FP32_TOL = (1e-4, 1e-4)
+PNA_GRAD_TOL = (1e-4, 2e-3)
+NEAR_TIE = 1e-4
 
 
 def log(msg: str) -> None:
@@ -1414,6 +1453,7 @@ def segment_phase(ops, ref) -> dict:
                 "bytes": need, "bound_ms": need / PEAK_BYTES * 1e3}
             del m
         del bucketed, valid
+        rec["pna_aggregate"] = pna_aggregate_check(ops, dst, msg_e, N, name)
         records[name] = rec
         log(f"phase 5: {name} messages E={dst.shape[0]} within tolerance "
             f"in fp32 and bf16, max/min == scatter oracle; "
@@ -1447,7 +1487,8 @@ def segment_phase(ops, ref) -> dict:
     return {"max_abs_err": max_err, "launches": launches,
             "ms": head["device_ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": "bytes",
-            "library_ms": None, "per_call_ms": head["per_call_ms"]}
+            "library_ms": None, "per_call_ms": head["per_call_ms"],
+            "pna_x10": records["SNB x10"]["pna_aggregate"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1584,6 +1625,463 @@ def attention_phase(ops, ref) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the side stacks, PNA and LLM serving
+# ---------------------------------------------------------------------------
+
+def tensors_within(got, want, tol, what: str) -> float:
+    """``got`` (any device) against ``want`` within (rtol, atol), the atol
+    a share of ``max|want|`` (at least 1); the largest absolute
+    difference."""
+    rtol, atol = tol
+    w = want.detach().to(torch.float64).cpu().numpy()
+    g = got.detach().to(torch.float64).cpu().numpy()
+    scale = max(float(np.abs(w).max(initial=0.0)), 1.0)
+    return within(g, w, rtol, atol * scale, what)
+
+
+def device_profile(fn, iters: int = 3) -> dict:
+    """The device ops one call of ``fn`` runs and their summed time, from a
+    ``torch.profiler`` trace, beside the call's wall time (device synced,
+    the profiler's cost included): the device's busy share of a call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / iters * 1e3
+    ops = [e.time_range.elapsed_us() for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(ops) / iters / 1e3
+    return {"wall_ms": wall_ms, "device_ms": busy_ms,
+            "device_ops": len(ops) / iters, "busy_share": busy_ms / wall_ms}
+
+
+def pna_graph(cfg, n_nodes: int, n_edges: int, device, seed: int = 0):
+    """A seeded random graph of ``n_nodes`` and ``n_edges`` with
+    ``cfg.d_in`` features and labels, padded by ``pad_graph`` to multiples
+    of 128 (padded edges and nodes); its last node has no in-edge."""
+    from repro_torch.models.gnn.graphdata import pad_graph
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n_nodes, n_edges)
+    dst = rng.integers(0, n_nodes - 1, n_edges)
+    feat = rng.standard_normal((n_nodes, cfg.d_in)).astype(np.float32)
+    labels = rng.integers(0, cfg.n_classes, n_nodes)
+    return pad_graph(feat, src, dst, labels=labels, device=device)
+
+
+def pna_phase(cfg=None, n_nodes: int = PNA_GRAPH[0],
+              n_edges: int = PNA_GRAPH[1], device: str = "cuda") -> dict:
+    """PNA's forward pass, ``loss_fn`` and its gradient on ``device``
+    against the same on the CPU, from the same weights (drawn on the CPU
+    from a seed); on the card, the forward and forward + backward times."""
+    from repro_torch.configs import pna as pna_configs
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.gnn import pna
+    from repro_torch.utils import host
+    cfg = cfg or pna_configs.full()
+    params = pna.init_params(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+    on_dev = tree_map(lambda t: t.to(device), params)
+    for t in tree_leaves(params) + tree_leaves(on_dev):
+        t.requires_grad_(True)
+    host_gb = pna_graph(cfg, n_nodes, n_edges, "cpu")
+    gb = pna_graph(cfg, n_nodes, n_edges, device)
+    check(int(host(gb.edge_mask.sum())) == n_edges < gb.n_edges,
+          "the PNA graph has no padded edge")
+
+    def loss_and_grads(p, g):
+        loss = pna.loss_fn(p, g, cfg)
+        return loss, torch.autograd.grad(loss, tree_leaves(p))
+
+    with torch.no_grad():
+        err = tensors_within(pna.forward(on_dev, gb, cfg),
+                             pna.forward(params, host_gb, cfg), FP32_TOL,
+                             "PNA forward, card against CPU")
+    loss, grads = loss_and_grads(on_dev, gb)
+    want_loss, want = loss_and_grads(params, host_gb)
+    err = max(err, tensors_within(loss, want_loss, FP32_TOL, "PNA loss"))
+    grad_err = 0.0
+    for i, (g, w) in enumerate(zip(grads, want)):
+        grad_err = max(grad_err, tensors_within(g, w, PNA_GRAD_TOL,
+                                                f"PNA gradient, leaf {i}"))
+    rec = {"config": {"n_layers": cfg.n_layers, "d_hidden": cfg.d_hidden,
+                      "d_in": cfg.d_in, "n_classes": cfg.n_classes},
+           "nodes": [n_nodes, gb.n_nodes], "edges": [n_edges, gb.n_edges],
+           "loss": float(host(loss)), "max_abs_err": err,
+           "grad_max_abs_err": grad_err}
+    if torch.device(device).type == "cuda":
+        def fwd():
+            with torch.no_grad():
+                return pna.forward(on_dev, gb, cfg)
+        rec["forward_ms"] = cuda_ms(fwd, 10)
+        rec["forward_backward_ms"] = cuda_ms(
+            lambda: loss_and_grads(on_dev, gb), 10)
+        rec["forward_trace"] = device_profile(fwd)
+    return rec
+
+
+def pna_aggregate_check(ops, dst, msg, num_nodes: int, what: str) -> dict:
+    """PNA's ``_aggregate`` (segment sums and extrema over the edge list,
+    the path PNA takes) on ``msg`` [E, D] fp32 into ``dst``, against the
+    scatter oracle and against ``bucketize_messages`` +
+    ``segment_multi_agg`` on the same messages; on the card, both timed
+    per call (CUDA events, host included).
+
+    Max and min bit for bit and the mean within 1e-5/1e-6 of the scatter
+    oracle; mean, max and min within the kernel's fp32 tolerance of the
+    kernel.  Both take the std as sqrt(E[x²] - E[x]² + eps) from fp32 sums
+    of the row's n messages, PNA's in the order of the atomic adds, the
+    kernel's slot by slot, so their variances may differ by the two sums'
+    rounding, at most (6(n - 1) + 2)·2^-24·E[x²] (recursive summation's
+    forward error bound, for E[x²] and for E[x]²), and their stds by that
+    over the sum of the two stds: a std near sqrt(eps) takes the
+    variance's rounding times up to 1/(2·sqrt(eps)).  The std is held to
+    the kernel's within that bound plus the kernel's tolerance, and each
+    one's distance from the std of float64 sums is recorded."""
+    from repro_torch.models.gnn import pna
+    emask = torch.ones(dst.shape[0], dtype=torch.bool, device=dst.device)
+
+    def path():
+        return pna._aggregate(msg, dst, emask, num_nodes)[0]
+
+    def kernel():
+        return ops.segment_multi_agg(*ops.bucketize_messages(
+            dst, msg, num_nodes))
+
+    outs = path().split(msg.shape[1], dim=1)
+    scatter_check(outs, dst, msg, num_nodes, f"PNA's aggregate, {what}")
+    tol = AGG_TOL[torch.float32]
+    kern = kernel()
+    err = 0.0
+    for name, g, w in list(zip(AGG_OUTPUTS, outs, kern))[:3]:
+        check(torch.allclose(g, w, rtol=tol, atol=tol),
+              f"PNA's aggregate {name} != segment_multi_agg at {what}")
+        err = max(err, float((g - w).abs().max()))
+    m64 = msg.to(torch.float64)
+    zeros = torch.zeros((num_nodes, msg.shape[1]), dtype=torch.float64,
+                        device=msg.device)
+    n = torch.bincount(dst, minlength=num_nodes).to(torch.float64)[:, None]
+    mean64 = zeros.index_add(0, dst, m64) / n.clamp_min(1.0)
+    sq64 = zeros.index_add(0, dst, m64 * m64) / n.clamp_min(1.0)
+    std64 = torch.where(n > 0, torch.sqrt(
+        (sq64 - mean64 * mean64).clamp_min(0.0) + 1e-5), 0.0)
+    std, k_std = outs[3].to(torch.float64), kern[3].to(torch.float64)
+    bound = tol + (6 * (n - 1).clamp_min(0.0) + 2) * 2.0 ** -24 * sq64 / (
+        std + k_std).clamp_min(2 * 1e-5 ** 0.5)
+    gap = (std - k_std).abs()
+    check(bool((gap <= bound).all()),
+          f"PNA's aggregate std != segment_multi_agg at {what} beyond the "
+          f"fp32 bound of E[x²] - E[x]²: {float(gap.max())}")
+    rec = {"edges": int(dst.shape[0]), "max_abs_err_vs_kernel": err,
+           "std_max_abs_err_vs_kernel": float(gap.max()),
+           "std_gap_over_bound": float((gap / bound).max()),
+           "std_err_vs_fp64": {"pna": float((std - std64).abs().max()),
+                               "kernel": float((k_std - std64).abs().max())}}
+    if msg.device.type == "cuda":
+        rec["pna_path_ms"] = cuda_ms(path, 5)
+        rec["kernel_path_ms"] = cuda_ms(kernel, 5)
+        rec["pna_path_ms_again"] = cuda_ms(path, 5)
+    return rec
+
+
+def llm_serve_phase(cfg=None, slots: int = LLM_SLOTS,
+                    requests: int = LLM_REQUESTS,
+                    prompt_lens: tuple = LLM_PROMPT_LENS,
+                    max_new: int = LLM_NEW_TOKENS,
+                    max_len: int = LLM_MAX_LEN, device: str = "cuda",
+                    seed: int = 0) -> dict:
+    """The LLM engine serving ``requests`` greedy requests through ``slots``
+    slots, on weights drawn on ``device`` from a seeded generator; the last
+    request repeats the first one's prompt.  Every request must end with
+    exactly ``max_new`` tokens and the repeated prompt must give the same
+    output.  Records each prefill's and decode step's time (the device
+    synced around each call), tokens/s, peak device memory and the decode
+    step's byte bound."""
+    from repro_torch.configs import starcoder2_3b
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.common import count_params, tree_leaves
+    from repro_torch.serve.llm import Request, ServeEngine
+    cfg = cfg or starcoder2_3b.full()
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    params = tfm.init_params(torch.Generator(device=dev).manual_seed(seed),
+                             cfg, device=dev)
+    sync(dev)
+    rec = {"arch": cfg.name, "params": count_params(params),
+           "init_s": time.perf_counter() - t0}
+    check(rec["params"] == cfg.param_count(),
+          f"{cfg.name}: {rec['params']} parameters, the config counts "
+          f"{cfg.param_count()}")
+    eng = ServeEngine(params, cfg, batch_slots=slots, max_len=max_len,
+                      eos_id=-1)
+    prefills, decodes = [], []
+
+    def timed_call(fn, log):
+        def run(p, tokens, *rest):
+            sync(dev)
+            t = time.perf_counter()
+            out = fn(p, tokens, *rest)
+            sync(dev)
+            log.append([int(tokens.shape[-1]),
+                        (time.perf_counter() - t) * 1e3])
+            return out
+        return run
+
+    with torch.no_grad():                       # warm-up, not counted
+        warm = torch.zeros((1, prompt_lens[0]), dtype=torch.int32,
+                           device=dev)
+        _, cache = eng._prefill1(params, warm)
+        eng._decode(params, warm[0, :slots].contiguous(), tfm.init_kv_cache(
+            cfg, slots, max_len, device=dev))
+        del cache
+    eng._prefill1 = timed_call(eng._prefill1, prefills)
+    eng._decode = timed_call(eng._decode, decodes)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
+               for n in rng.integers(prompt_lens[0], prompt_lens[1] + 1,
+                                     requests)]
+    prompts[-1] = prompts[0]
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=max_new)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    t0 = time.perf_counter()
+    eng.run_to_completion()
+    sync(dev)
+    wall = time.perf_counter() - t0
+    check(all(r.done and len(r.output) == max_new for r in reqs),
+          f"a request ended without its {max_new} tokens: "
+          f"{[len(r.output) for r in reqs]}")
+    check(all(0 <= t < cfg.vocab for r in reqs for t in r.output),
+          "a token outside the vocabulary")
+    check(reqs[-1].output == reqs[0].output,
+          "the same prompt gave two outputs")
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(params))
+    cache_bytes = sum(eng.cache[k].numel() * eng.cache[k].element_size()
+                      for k in ("k", "v"))
+    tokens = sum(len(r.output) for r in reqs)
+    step_ms = [ms for _, ms in decodes]
+    rec.update(
+        slots=slots, requests=requests, max_len=max_len, new_tokens=max_new,
+        prompt_lens=[len(p) for p in prompts], tokens=tokens,
+        seconds=wall, tokens_per_s=tokens / wall,
+        prefill_ms_by_len=sorted(prefills), decode_steps=len(decodes),
+        decode_ms_median=float(np.median(step_ms)),
+        decode_ms_min=float(np.min(step_ms)),
+        decode_ms_max=float(np.max(step_ms)),
+        param_bytes=param_bytes, cache_bytes=cache_bytes,
+        decode_bound_ms=(param_bytes + cache_bytes) / PEAK_BYTES * 1e3,
+        weights_bound_ms=param_bytes / PEAK_BYTES * 1e3,
+        bound_by="bytes", first_output=reqs[0].output[:8])
+    if dev.type == "cuda":
+        rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        step = torch.zeros(slots, dtype=torch.int32, device=dev)
+        prompt = torch.zeros((1, prompt_lens[1]), dtype=torch.int32,
+                             device=dev)
+        with torch.no_grad():
+            rec["decode_trace"] = device_profile(
+                lambda: tfm.decode_step(params, step, eng.cache, cfg))
+            rec["prefill_trace"] = device_profile(
+                lambda: tfm.prefill(params, prompt, cfg, max_len))
+    return rec
+
+
+def prefill_attention_times(ops, device: str = "cuda") -> dict:
+    """The port's ``chunked_attention`` (what ``prefill`` runs) at the
+    starcoder2-3b prefill shape in bf16, held to ``flash_attention`` and
+    SDPA within SDPA's check of phase 6 and timed beside both, in turns
+    (chunked, flash, SDPA, SDPA, flash, chunked)."""
+    from repro_torch.models import attention as attn
+    B, Hq, Hkv, Sq, Sk, D = ATTN_MODEL_SHAPES["starcoder2-3b prefill"]
+    gen = torch.Generator(device=device).manual_seed(1)
+    q, k, v = (torch.randn(s, generator=gen, device=device).to(
+        torch.bfloat16) for s in ((B, Hq, Sq, D), (B, Hkv, Sk, D),
+                                  (B, Hkv, Sk, D)))
+    fns = {"chunked": lambda: attn.chunked_attention(q, k, v, causal=True,
+                                                     chunk=512),
+           "flash": lambda: ops.flash_attention(q, k, v, causal=True),
+           "sdpa": lambda: sdpa(q, k, v, True)}
+    got = fns["chunked"]().to(torch.float32)
+    err = {}
+    for name in ("flash", "sdpa"):
+        other = fns[name]().to(torch.float32)
+        check(torch.allclose(got, other, rtol=3e-2, atol=3e-2),
+              f"chunked_attention disagrees with {name} at the prefill "
+              f"shape")
+        err[name] = float((got - other).abs().max())
+    ms = {name: [] for name in fns}
+    for name in ("chunked", "flash", "sdpa", "sdpa", "flash", "chunked"):
+        ms[name].append(cuda_ms(fns[name], 5))
+    return {"shape": [B, Hq, Hkv, Sq, Sk, D], "max_abs_err_vs": err,
+            "ms": ms}
+
+
+def decode_parity(params, host_params, cfg, toks: np.ndarray, steps: int,
+                  max_len: int, what: str) -> float:
+    """``prefill`` then ``steps`` ``decode_step``s on the device of
+    ``params`` against the same on the CPU (``host_params``), fed the
+    CPU's greedy tokens: logits and caches within ``FP32_TOL``."""
+    from repro_torch.models import transformer as tfm
+    dev = params["embed"]["table"].device
+    with torch.no_grad():
+        t = torch.from_numpy(toks)
+        got, cache = tfm.prefill(params, t.to(dev), cfg, max_len)
+        want, host_cache = tfm.prefill(host_params, t, cfg, max_len)
+        err = 0.0
+        for step in range(steps + 1):
+            err = max(err, tensors_within(got, want, FP32_TOL,
+                                          f"{what} logits, step {step}"))
+            for key in ("k", "v"):
+                err = max(err, tensors_within(
+                    cache[key], host_cache[key], FP32_TOL,
+                    f"{what} cache {key}, step {step}"))
+            check(torch.equal(cache["len"].cpu(), host_cache["len"]),
+                  f"{what} cache lengths, step {step}")
+            if step == steps:
+                break
+            nxt = torch.argmax(want, dim=-1).to(torch.int32)
+            got, cache = tfm.decode_step(params, nxt.to(dev), cache, cfg)
+            want, host_cache = tfm.decode_step(host_params, nxt, host_cache,
+                                               cfg)
+    return err
+
+
+def engine_parity(params, cfg, prompts, max_new: int, slots: int,
+                  max_len: int) -> dict:
+    """The ``slots``-slot engine's outputs against each request served
+    alone through a 1-slot engine, token for token.  Where two outputs
+    part, the parting is taken only at a near tie: the gap between the
+    two top logits at that step (``prefill`` over the prompt and the
+    common prefix) must be below ``NEAR_TIE`` of the logits' largest
+    magnitude."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.llm import Request, ServeEngine
+    from repro_torch.utils import host
+
+    def serve(batch, n_slots):
+        eng = ServeEngine(params, cfg, batch_slots=n_slots, max_len=max_len,
+                          eos_id=-1)
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=max_new)
+                for i, p in enumerate(batch)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_to_completion()
+        return [r.output for r in reqs]
+
+    together = serve(prompts, slots)
+    partings = []
+    for i, (p, out) in enumerate(zip(prompts, together)):
+        alone = serve([p], 1)[0]
+        if alone == out:
+            continue
+        at = next(j for j, (a, b) in enumerate(zip(alone, out)) if a != b)
+        dev = params["embed"]["table"].device
+        ctx = np.concatenate([p, np.asarray(alone[:at], np.int32)])
+        with torch.no_grad():
+            logits = tfm.prefill(params, torch.from_numpy(ctx)[None].to(dev),
+                                 cfg, len(ctx) + 1)[0][0]
+        top = torch.topk(logits, 2).values
+        gap = float(host((top[0] - top[1]) / logits.abs().max()))
+        log(f"phase 10c: request {i} parts from its 1-slot run at token "
+            f"{at}: top-2 logit gap {gap:.3e} of the logit scale")
+        check(gap < NEAR_TIE, f"request {i}: the {slots}-slot and 1-slot "
+                              f"outputs part at token {at} where the top two "
+                              f"logits are {gap:.3e} of the scale apart")
+        partings.append({"request": i, "token": at, "gap": gap})
+    return {"requests": len(prompts), "slots": slots, "partings": partings}
+
+
+def llm_parity_phase(device: str = "cuda", starcoder=None, qwen=None,
+                     layers: int = PARITY_LAYERS, seed: int = 0) -> dict:
+    """(c) starcoder2-3b at full width cut to ``layers`` layers in fp32:
+    ``prefill`` and 4 ``decode_step``s on ``device`` against the CPU, then
+    the 4-slot engine against 1-slot runs; qwen2-moe-a2.7b at full width
+    cut the same way: ``prefill`` and 2 ``decode_step``s against the CPU.
+    Weights are drawn on ``device`` and copied to the CPU."""
+    from repro_torch.configs import qwen2_moe_a2_7b, starcoder2_3b
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.common import tree_map
+    dev = torch.device(device)
+    rng = np.random.default_rng(seed)
+    rec = {}
+    for name, base, batch, steps in (
+            ("starcoder2-3b", starcoder or starcoder2_3b.full(), 2, 4),
+            ("qwen2-moe-a2.7b", qwen or qwen2_moe_a2_7b.full(), 1, 2)):
+        cfg = dataclasses.replace(base, n_layers=layers,
+                                  dtype=torch.float32)
+        params = tfm.init_params(torch.Generator(device=dev).manual_seed(
+            seed), cfg, device=dev)
+        host_params = tree_map(lambda t: t.cpu(), params)
+        toks = rng.integers(0, cfg.vocab, (batch, PARITY_PROMPT)).astype(
+            np.int32)
+        r = {"layers": layers, "d_model": cfg.d_model, "batch": batch,
+             "prompt": PARITY_PROMPT, "decode_steps": steps,
+             "max_abs_err": decode_parity(params, host_params, cfg, toks,
+                                          steps, PARITY_PROMPT + steps + 4,
+                                          name)}
+        if name == "starcoder2-3b":
+            prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
+                       for n in rng.integers(8, PARITY_PROMPT, 6)]
+            r["engine"] = engine_parity(params, cfg, prompts, 8, LLM_SLOTS,
+                                        PARITY_PROMPT + 16)
+        rec[name] = r
+        del params, host_params
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return rec
+
+
+def run_side_stacks(ops, only, seconds: dict, agg_x10=None) -> dict:
+    """Phase 10 with every kernel count zeroed just before its path and
+    read just after: the reference's PNA and transformer call no kernel,
+    so neither does the port's path.  The comparisons with the kernels
+    (PNA's aggregate, prefill attention) come after the counts are read."""
+    dev = torch.device("cuda")
+    out = {}
+    reset_launches(ops)
+    if "pna" in only:
+        t0 = time.perf_counter()
+        out["pna"] = pna_phase()
+        seconds["pna"] = time.perf_counter() - t0
+    if "llm" in only:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out["llm"] = llm_serve_phase()
+        seconds["llm_serve"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["parity"] = llm_parity_phase()
+        seconds["llm_parity"] = time.perf_counter() - t0
+    launches = {fn: getattr(ops, fn).launches for fn in
+                ("block_spmm", "segment_multi_agg", "flash_attention")}
+    check(not any(launches.values()),
+          f"phase 10's path launched a kernel: {launches}")
+    t0 = time.perf_counter()
+    if "pna" in only:
+        if agg_x10 is None:
+            dst, msg, N = snb_messages(torch.Generator(
+                device=dev).manual_seed(0), dev, **SNB_X10)
+            agg_x10 = pna_aggregate_check(ops, dst, msg, N, "SNB x10")
+            del dst, msg
+        out["pna"]["aggregate_snb_x10"] = agg_x10
+        log("phase 10a: PNA full width, card == CPU; " + json.dumps(
+            out["pna"]))
+    if "llm" in only:
+        out["llm"]["prefill_attention"] = prefill_attention_times(ops)
+        log("phase 10b: starcoder2-3b full width served; " + json.dumps(
+            out["llm"]))
+        log("phase 10c: card == CPU at 2 layers in fp32, 4-slot == 1-slot; "
+            + json.dumps(out["parity"]))
+    seconds["side_stack_checks"] = time.perf_counter() - t0
+    log(f"phase 10: kernel launches on its path {json.dumps(launches)}")
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def log_workload(what: str, rec: dict) -> None:
     """Phases 3-4's table: each read's median seconds without and with
@@ -1617,8 +2115,8 @@ def run_sharded(ops, seconds: dict) -> dict:
 
 
 def probe(only: list, seconds: dict) -> int:
-    """``--only=snb,finbench,sharded``: the named phases alone, for a
-    short call on the card; prints no result line."""
+    """``--only=snb,finbench,sharded,pna,llm``: the named phases alone, for
+    a short call on the card; prints no result line."""
     from repro_torch.kernels import ops
     if "snb" in only:
         t0 = time.perf_counter()
@@ -1630,6 +2128,8 @@ def probe(only: list, seconds: dict) -> int:
         seconds["finbench"] = time.perf_counter() - t0
     if "sharded" in only:
         run_sharded(ops, seconds)
+    if "pna" in only or "llm" in only:
+        run_side_stacks(ops, only, seconds)
     log("seconds " + json.dumps(seconds))
     return 0
 
@@ -1758,6 +2258,10 @@ def main() -> int:
     shard = run_sharded(ops, seconds)
     check(shard["launches"] == 0, "the sharded path launched block_spmm: "
                                   "its hops are segment hops")
+
+    gc.collect()                     # phase 9's sessions and their caches
+    torch.cuda.empty_cache()
+    side = run_side_stacks(ops, ("pna", "llm"), seconds, agg.pop("pna_x10"))
     log("seconds " + json.dumps(seconds))
     by_phase = {"snb": snb_launches, "finbench": launches - snb_launches,
                 "serve": fin_serve["launches"], "gnn": gnn["launches"]}
@@ -1784,12 +2288,15 @@ def main() -> int:
         "replaces": "src/repro/kernels/segment_agg.py:44",
         **{k: agg[k] for k in keys}, "checked": True,
         "per_call_ms": agg["per_call_ms"],
+        "pna_path_ms": side["pna"]["aggregate_snb_x10"]["pna_path_ms"],
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:73",
         **{k: attn[k] for k in keys}, "checked": True,
         "launches_by_route": attn["launches_by_route"],
+        "chunked_prefill_ms": side["llm"]["prefill_attention"]["ms"][
+            "chunked"],
     }]
     log(f"nvidia-smi: {smi}")
     log(json.dumps({"kernels": kernels}))

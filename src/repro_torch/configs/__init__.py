@@ -1,1 +1,27 @@
-"""Workload configurations: the paper's views, reads and write mix."""
+"""Configurations: the paper's workload (views, reads and write mix, in
+``configs.mv4pg``) and the architecture registry of the side stacks:
+``--arch <id>`` resolves here.  It holds the architectures ported so far,
+under the reference's ids."""
+from __future__ import annotations
+
+from typing import Dict
+
+from repro_torch.configs import (
+    gemma_2b, pna, qwen2_moe_a2_7b, qwen3_moe_235b_a22b, starcoder2_3b,
+    yi_34b,
+)
+from repro_torch.configs.base import ArchSpec
+
+ARCHS: Dict[str, ArchSpec] = {
+    spec.arch_id: spec
+    for spec in [
+        yi_34b.SPEC, starcoder2_3b.SPEC, gemma_2b.SPEC,
+        qwen2_moe_a2_7b.SPEC, qwen3_moe_235b_a22b.SPEC, pna.SPEC,
+    ]
+}
+
+
+def get_arch(arch_id: str) -> ArchSpec:
+    if arch_id not in ARCHS:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCHS)}")
+    return ARCHS[arch_id]

@@ -4,12 +4,15 @@ A graph or schema described by numpy arrays and label lists — for example
 the fields of a graph built by the reference package, pulled to the host —
 becomes the port's :class:`~repro_torch.core.graph.PropertyGraph` /
 :class:`~repro_torch.core.schema.GraphSchema`, so both packages can run on
-identical state.  :func:`sage_params_from_arrays` carries SAGE weights the
-same way.
+identical state.  :func:`sage_params_from_arrays`,
+:func:`pna_params_from_arrays` and :func:`transformer_params_from_arrays`
+carry model weights the same way: the layouts are the reference's, so each
+is a copy (bf16 weights cross as float32 arrays, numpy having no bf16, and
+are cast to ``dtype``).
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, Mapping, Sequence
+from typing import Any, Dict, Iterable, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -64,7 +67,34 @@ def sage_params_from_arrays(params: Mapping[str, Mapping[str, object]],
     "b"}}`` of arrays, ``w`` as ``[d_in, d_out]`` — as the port's float32
     parameter dictionary on ``device``.  The layouts are the same, so this
     is a copy."""
-    dev = resolve_device(device)
-    return {name: {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(dev)
-                   for k, v in layer.items()}
-            for name, layer in params.items()}
+    return _tree_from_arrays(params, torch.float32, resolve_device(device))
+
+
+def _tree_from_arrays(tree, dtype: torch.dtype, dev: torch.device):
+    if isinstance(tree, Mapping):
+        return {k: _tree_from_arrays(v, dtype, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_from_arrays(v, dtype, dev) for v in tree]
+    return torch.from_numpy(np.array(tree, dtype=np.float32)).to(
+        device=dev, dtype=dtype)
+
+
+def pna_params_from_arrays(params: Mapping[str, Any],
+                           dtype: torch.dtype = torch.float32,
+                           device: DeviceLike = None) -> Dict[str, Any]:
+    """PNA parameters in the reference's names and layouts (``proj``, a
+    list of ``layers`` with ``msg`` / ``post_id`` / ``post_amp`` /
+    ``post_att``, ``head``) of arrays, as the port's tensors in ``dtype``
+    on ``device``."""
+    return _tree_from_arrays(params, dtype, resolve_device(device))
+
+
+def transformer_params_from_arrays(params: Mapping[str, Any],
+                                   dtype: torch.dtype = torch.float32,
+                                   device: DeviceLike = None
+                                   ) -> Dict[str, Any]:
+    """Transformer parameters in the reference's names and layouts
+    (``embed``, ``layers`` stacked along a leading L axis, ``final_ln``,
+    ``lm_head`` when untied) of arrays, as the port's tensors in ``dtype``
+    on ``device``."""
+    return _tree_from_arrays(params, dtype, resolve_device(device))

@@ -3,12 +3,14 @@
 ``GraphBatch`` holds one padded graph (or sampled subgraph) as tensors on
 one device: node features and masks, a COO edge list with its padding mask,
 and optional labels and edge weights (a view's path counts).
-:func:`pad_graph` builds one from host arrays.
+:func:`pad_graph` builds one from host arrays, :func:`random_graph_batch`
+draws one from a ``torch.Generator``, and :func:`build_triplets` derives
+DimeNet's 2-hop edge pairs from a COO edge list.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -73,3 +75,70 @@ def pad_graph(node_feat, edge_src, edge_dst, *, positions=None, labels=None,
         edge_weight=None if edge_weight is None else pad(
             np.asarray(edge_weight, np.float32), E),
     )
+
+
+def build_triplets(edge_src: np.ndarray, edge_dst: np.ndarray,
+                   max_triplets: Optional[int] = None
+                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """All (e_kj, e_ji) edge pairs sharing middle node j with k != i.
+
+    Returns (t_in, t_out, mask): indices into the edge list such that
+    edge t_in = (k -> j) feeds edge t_out = (j -> i).  This is the 2-hop
+    path view DimeNet aggregates angular features over.
+    """
+    edge_src = np.asarray(edge_src)
+    edge_dst = np.asarray(edge_dst)
+    E = edge_src.shape[0]
+    by_dst: dict[int, list[int]] = {}
+    for e in range(E):
+        by_dst.setdefault(int(edge_dst[e]), []).append(e)
+    t_in, t_out = [], []
+    for e_out in range(E):
+        j = int(edge_src[e_out])
+        i = int(edge_dst[e_out])
+        for e_in in by_dst.get(j, ()):
+            if int(edge_src[e_in]) != i:          # no immediate backtrack
+                t_in.append(e_in)
+                t_out.append(e_out)
+    t_in = np.asarray(t_in, np.int32)
+    t_out = np.asarray(t_out, np.int32)
+    T = t_in.shape[0]
+    cap = max_triplets or round_up(max(T, 1), 128)
+    mask = np.zeros(cap, bool)
+    mask[: min(T, cap)] = True
+    out_in = np.zeros(cap, np.int32)
+    out_out = np.zeros(cap, np.int32)
+    out_in[: min(T, cap)] = t_in[:cap]
+    out_out[: min(T, cap)] = t_out[:cap]
+    return out_in, out_out, mask
+
+
+def random_graph_batch(gen: torch.Generator, n_nodes: int, n_edges: int,
+                       d_feat: int, *, geometric: bool = False,
+                       n_labels: int = 8, batch: int = 1,
+                       device: DeviceLike = None) -> GraphBatch:
+    """Synthetic batch for smoke runs, drawn on ``gen``'s device and put on
+    ``device``; no padding (every edge and node mask is true)."""
+    dev = resolve_device(device)
+    g = gen.device
+
+    def ints(hi, n):
+        return torch.randint(0, hi, (n,), generator=gen, device=g,
+                             dtype=torch.int32)
+
+    src, dst = ints(n_nodes, n_edges), ints(n_nodes, n_edges)
+    if geometric:
+        feat = ints(5, n_nodes)
+        pos = torch.randn((n_nodes, 3), generator=gen, device=g) * 2.0
+    else:
+        feat = torch.randn((n_nodes, d_feat), generator=gen, device=g)
+        pos = None
+    gid = (torch.arange(n_nodes, device=g) * batch // n_nodes).to(
+        torch.int32)
+    labels = ints(n_labels, n_nodes)
+    return GraphBatch(
+        node_feat=feat.to(dev), edge_src=src.to(dev), edge_dst=dst.to(dev),
+        edge_mask=torch.ones(n_edges, dtype=torch.bool, device=dev),
+        node_mask=torch.ones(n_nodes, dtype=torch.bool, device=dev),
+        graph_id=gid.to(dev), positions=None if pos is None else pos.to(dev),
+        labels=labels.to(dev))

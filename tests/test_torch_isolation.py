@@ -44,7 +44,13 @@ def test_port_has_the_slice_modules():
                  "graphops.sampler", "graphops.view_subgraph",
                  "models.common", "models.gnn.graphdata", "models.gnn.sage",
                  "launch.gnn", "mv4pg", "graphops.distributed",
-                 "launch.mesh"):
+                 "launch.mesh", "graphops.segment", "models.gnn.pna",
+                 "configs.base", "configs.pna", "models.attention",
+                 "models.moe", "models.transformer", "configs.starcoder2_3b",
+                 "configs.gemma_2b", "configs.yi_34b",
+                 "configs.qwen2_moe_a2_7b", "configs.qwen3_moe_235b_a22b",
+                 "configs.shapes", "data.tokens", "serve.llm",
+                 "launch.serve"):
         assert f"repro_torch.{name}" in mods, name
     for src in ("block_spmm", "segment_agg", "flash_attention"):
         assert (PORT / "kernels" / "csrc" / f"{src}.cu").is_file(), src
@@ -409,3 +415,54 @@ def test_chip_smoke_gnn_phase_rehearses_on_cpu():
     assert bound_ms == 2.0 * 13568 ** 2 * 128 / smoke.PEAK_FP32_FLOPS * 1e3
     with pytest.raises(AssertionError):
         smoke.within(np.ones(3), np.ones(3) + 1e-3, 1e-4, 1e-6, "off")
+
+
+def test_chip_smoke_side_stacks_rehearse_on_cpu():
+    """Phase 10 at a tiny scale on the host (the card's side of each
+    comparison is the CPU here): PNA's smoke config on a 48-node padded
+    graph (forward, loss and gradient compared, no timing), PNA's aggregate
+    against ``bucketize_messages`` + ``segment_multi_agg`` (its plain
+    version) and the scatter oracle on a tiny SNB graph, the LLM engine
+    serving the starcoder2-3b smoke config through 2 slots (every request
+    at its length, the repeated prompt's output equal, the byte bound from
+    the weights and the cache), and the parity phase on the smoke configs
+    of starcoder2-3b and qwen2-moe-a2.7b (no parting between the 4-slot
+    engine and 1-slot runs)."""
+    import importlib.util
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    spec = importlib.util.spec_from_file_location("chip_smoke", SMOKE)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+
+    pna = smoke.pna_phase(get_arch("pna").smoke(), 48, 160, "cpu")
+    assert pna["nodes"] == [48, 128] and pna["edges"] == [160, 256]
+    assert pna["max_abs_err"] == 0.0 and pna["grad_max_abs_err"] == 0.0
+    assert np.isfinite(pna["loss"]) and "forward_ms" not in pna
+
+    gen = torch.Generator().manual_seed(0)
+    dst, msg, N = smoke.snb_messages(gen, "cpu", n_person=40, n_post=30,
+                                     n_comment=240, n_place=6, n_tag=30)
+    agg = smoke.pna_aggregate_check(ops, dst, msg, N, "tiny SNB")
+    assert agg["edges"] == dst.shape[0] and "pna_path_ms" not in agg
+    assert agg["max_abs_err_vs_kernel"] <= smoke.AGG_TOL[torch.float32]
+
+    cfg = get_arch("starcoder2-3b").smoke()
+    llm = smoke.llm_serve_phase(cfg, slots=2, requests=5,
+                                prompt_lens=(4, 12), max_new=6, max_len=32,
+                                device="cpu")
+    assert llm["params"] == cfg.param_count() and llm["tokens"] == 30
+    assert len(llm["prefill_ms_by_len"]) == 5 and llm["decode_steps"] >= 15
+    assert llm["cache_bytes"] == 2 * 4 * cfg.n_layers * 2 * \
+        cfg.n_kv_heads * 32 * cfg.head_dim
+    assert llm["decode_bound_ms"] == (llm["param_bytes"] + llm[
+        "cache_bytes"]) / smoke.PEAK_BYTES * 1e3
+    assert "max_memory_allocated" not in llm
+
+    par = smoke.llm_parity_phase(
+        "cpu", starcoder=cfg, qwen=get_arch("qwen2-moe-a2.7b").smoke())
+    assert set(par) == {"starcoder2-3b", "qwen2-moe-a2.7b"}
+    assert par["starcoder2-3b"]["engine"] == {
+        "requests": 6, "slots": smoke.LLM_SLOTS, "partings": []}
+    assert all(r["max_abs_err"] == 0.0 for r in par.values())
