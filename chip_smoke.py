@@ -46,7 +46,7 @@ Phases:
      round, 2 rounds), every ticket equal to a sequential twin's
      ``query``/``apply_writes`` replay; (b) the same on FinBench with the
      served session's dense hops on ``block_spmm`` against a segment-hop
-     twin; (c) online view selection on SNB against a views-off engine (6
+     twin; (c) online view selection on SNB against a views-off engine (4
      rounds);
   8. the view-fed GNN on SNB: SAGE trains on the ``REFRESH DEFERRED`` view
      KNOWS2 through ``train_on_view`` (3 epochs, segment path, finite
@@ -79,18 +79,37 @@ Phases:
      ``chunked_attention`` at the prefill shape beside ``flash_attention``
      and SDPA; (c) starcoder2-3b and qwen2-moe-a2.7b at full width cut to 2
      layers in fp32, prefill and decode steps on the card equal to the CPU,
-     and the 4-slot engine's outputs equal to each request served alone.
+     and the 4-slot engine's outputs equal to each request served alone;
+ 11. training and the last side stacks: (a) starcoder2-3b at full width
+     (bf16, remat, weights drawn on the card) trained 3 steps of
+     ``make_train_step`` with fp32 AdamW moments, each step two
+     microbatches of 4,096 tokens, with the loss, ms, tokens/s, model
+     FLOP/s against the bf16 peak and the peak memory (under 79 GB); one
+     step at 2 layers in fp32 on the card equal to the CPU (loss,
+     gradients, updated parameters); (b) ``launch/train.py``'s 100m preset,
+     40 steps with checkpoints every 10 and a failure injected at step 25,
+     recovering once to within 5e-2 of an uninterrupted run's final loss,
+     and a state with 8-bit moments saved and restored bit for bit; (c)
+     DimeNet, NequIP and MACE at full width on 128 molecules of 30 atoms,
+     forward, loss and gradient on the card equal to the CPU, 3 trainer
+     steps timed, NequIP's forces, and (NequIP, MACE) energies invariant
+     and forces rotating under a rotation; (d) MIND at full width, loss and
+     gradient at a batch of 256, ``score_candidates`` at 512 x 100 and
+     ``retrieval_scores`` over its 1,000,000 items on the card equal to
+     the CPU, then 3 trainer steps at a batch of 32,768 (the shape's
+     65,536 halved for memory) with the peak memory.
 
-``python3 chip_smoke.py --only=snb,finbench,sharded,pna,llm`` runs the
-named phases alone (after the build; ``pna`` and ``llm`` are phase 10's
-halves) and prints no result line.
+``python3 chip_smoke.py --only=snb,finbench,sharded,pna,llm,train,molecular,recsys``
+runs the named phases alone (after the build; ``pna`` and ``llm`` are
+phase 10's halves; ``train``, ``molecular`` and ``recsys`` phase 11's:
+11a-b, 11c and 11d) and prints no result line.
 
 Each kernel's launch count is zeroed just before its main path and read
 just after it: phases 3-4, the serve run of 7b and phase 8's path for
 ``block_spmm``, the ends of phases 5 and 6 for the others (comparison
 launches do not count); phase 9, whose hops are all segment hops, must
-launch none, and phase 10, whose reference modules call no kernel, must
-launch none either.  ``block_spmm`` and
+launch none, and phases 10 and 11, whose reference modules call no
+kernel, must launch none either.  ``block_spmm`` and
 ``flash_attention`` also count launches by route: ``tc`` (tensor cores)
 and ``fp32`` (CUDA cores).  Every failed check raises, so the script exits
 non-zero and prints no result line.  It needs one CUDA device; without one
@@ -165,12 +184,13 @@ ATTN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2 ** -7, 1e-4)}
 
 # phase 7: the workload driver's serve script (clients bound to one random
 # start node each, one fence a round) and the online bench's rounds, cut
-# from 12 to 6 to keep the smoke well under 600 s (12 rounds took 197 s of
-# a 538 s smoke on an NVIDIA H100 80GB HBM3 at 700 W); the selector still
-# evaluates twice, after rounds 3 and 6
+# from 12 to 6 (12 rounds took 197 s of a 538 s smoke on an NVIDIA H100
+# 80GB HBM3 at 700 W), then to 4 once phase 11 joined the smoke (the whole
+# call took 626.6 s of command with 6 rounds on that card): the selector
+# evaluates once, after round 3
 SERVE_CLIENTS = 16
 SERVE_ROUNDS = 2
-ONLINE_ROUNDS = 6
+ONLINE_ROUNDS = 4
 # phases 3-4: each read and write timed alone, as the workload driver's
 # table (benchmarks/workload_driver.py::run_workload): one warm-up, then
 # this many runs, the median kept
@@ -214,6 +234,32 @@ PARITY_PROMPT = 96
 FP32_TOL = (1e-4, 1e-4)
 PNA_GRAD_TOL = (1e-4, 2e-3)
 NEAR_TIE = 1e-4
+# phase 11: starcoder2-3b trained at full width on LM_SHAPES["train_4k"]'s
+# sequence of 4,096 tokens, its global batch of 256 cut to 2 (two
+# microbatches of one sequence a step) for memory and time, and checked
+# against the CPU at 2 layers on shorter sequences; launch/train.py's 100m
+# preset with a failure injected at step CLI_FAIL of CLI_STEPS; the
+# molecular GNNs on GNN_SHAPES["molecule"] (128 molecules of 30 atoms and
+# 64 bonds), padded to 512 as the reference's cell pads them; MIND on
+# RECSYS_SHAPES' serve_p99 and retrieval_cand, and on train_batch halved
+# from 65,536 to 32,768: at 65,536 the [B, B] fp32 in-batch logits (17.2
+# GB) and three such buffers of their backward ran out of the card's 80 GB
+# (an NVIDIA H100 80GB HBM3 at 700 W: 16 GiB asked with 67.3 GiB held)
+TRAIN_SEQ = 4096
+TRAIN_ACCUM = 2
+TRAIN_STEPS = 3
+TRAIN_PARITY_SEQ = 128
+TRAIN_MEM_LIMIT = 79e9
+PEAK_NAME = "NVIDIA H100 SXM bf16 dense, 989 TFLOP/s (data sheet)"
+CLI_STEPS = 40
+CLI_FAIL = 25
+CLI_CKPT_EVERY = 10
+MOLECULE = (30, 64, 128)
+MOLECULE_PAD = 512
+GNN_STEPS = 3
+MIND_BATCH = 32768
+MIND_STEPS = 3
+MIND_SERVE = (512, 100)
 
 
 def log(msg: str) -> None:
@@ -1639,10 +1685,12 @@ def tensors_within(got, want, tol, what: str) -> float:
     return within(g, w, rtol, atol * scale, what)
 
 
-def device_profile(fn, iters: int = 3) -> dict:
+def device_profile(fn, iters: int = 3, top: int = 0) -> dict:
     """The device ops one call of ``fn`` runs and their summed time, from a
     ``torch.profiler`` trace, beside the call's wall time (device synced,
-    the profiler's cost included): the device's busy share of a call."""
+    the profiler's cost included): the device's busy share of a call;
+    with ``top``, the names of the ``top`` device ops of most summed time
+    and their ms a call."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1652,11 +1700,19 @@ def device_profile(fn, iters: int = 3) -> dict:
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / iters * 1e3
-    ops = [e.time_range.elapsed_us() for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(ops) / iters / 1e3
-    return {"wall_ms": wall_ms, "device_ms": busy_ms,
-            "device_ops": len(ops) / iters, "busy_share": busy_ms / wall_ms}
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in events) / iters / 1e3
+    rec = {"wall_ms": wall_ms, "device_ms": busy_ms,
+           "device_ops": len(events) / iters, "busy_share": busy_ms / wall_ms}
+    if top:
+        by_name = {}
+        for e in events:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / iters / 1e3
+        rec["top_ops_ms"] = dict(sorted(by_name.items(),
+                                        key=lambda kv: -kv[1])[:top])
+    return rec
 
 
 def pna_graph(cfg, n_nodes: int, n_edges: int, device, seed: int = 0):
@@ -2082,6 +2138,488 @@ def run_side_stacks(ops, only, seconds: dict, agg_x10=None) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: training and the molecular and recommender stacks
+# ---------------------------------------------------------------------------
+
+def batch_on(x: np.ndarray, y: np.ndarray, device) -> tuple:
+    return torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
+
+
+def train_lm_phase(cfg=None, steps: int = TRAIN_STEPS, seq: int = TRAIN_SEQ,
+                   accum: int = TRAIN_ACCUM, device: str = "cuda",
+                   seed: int = 0) -> dict:
+    """(a) ``make_train_step`` on starcoder2-3b at full width (weights drawn
+    on ``device`` from a seeded generator), fp32 moments as the reference's
+    ``launch/steps.py::_adam_cfg`` gives this arch, ``accum`` microbatches
+    of one sequence of ``seq`` tokens a step, from ``token_batch``.  Each
+    step's loss is read to the host and timed (the device synced); the
+    first loss must be within 1 of ln(vocab), the others finite.  Model
+    FLOPs a step are 6 x parameters x tokens; the rate is taken over the
+    steps after the first (which pays cuBLAS's and the allocator's
+    warm-up), as a share of the card's bf16 dense peak."""
+    from repro_torch.configs import starcoder2_3b
+    from repro_torch.data.tokens import token_batch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.common import count_params
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import init_train_state, make_train_step
+    from repro_torch.utils import host
+    cfg = cfg or starcoder2_3b.full()
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    ocfg = opt.AdamWConfig(state_bits=32)
+    state = init_train_state(tfm.init_params(
+        torch.Generator(device=dev).manual_seed(seed), cfg, device=dev), ocfg)
+    sync(dev)
+    n = count_params(state.params)
+    rec = {"arch": cfg.name, "params": n, "dtype": str(cfg.dtype),
+           "remat": cfg.remat, "seq": seq, "microbatches": accum,
+           "global_batch": accum, "init_s": time.perf_counter() - t0}
+    check(n == cfg.param_count(), f"{cfg.name}: {n} parameters")
+    step = make_train_step(lambda p, b: tfm.lm_loss(p, b[0], b[1], cfg),
+                           ocfg, grad_accum=accum)
+    losses, ms = [], []
+    for s in range(steps):
+        batch = batch_on(*token_batch(s, accum, seq, cfg.vocab), dev)
+        sync(dev)
+        t = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(host(metrics["loss"])))
+        sync(dev)
+        ms.append((time.perf_counter() - t) * 1e3)
+    check(all(np.isfinite(losses)), f"{cfg.name}: a loss is not finite: "
+                                    f"{losses}")
+    check(abs(losses[0] - float(np.log(cfg.vocab))) < 1.0,
+          f"{cfg.name}: the first loss {losses[0]} is far from ln(vocab)")
+    check(int(host(state.opt_state.step)) == steps, "optimizer steps")
+    tokens = accum * seq
+    step_s = float(np.mean(ms[1:] if steps > 1 else ms)) / 1e3
+    flops = 6.0 * n * tokens
+    rec.update(losses=losses, step_ms=ms, tokens_per_step=tokens,
+               tokens_per_s=tokens / step_s, model_flops_per_step=flops,
+               model_flops_per_s=flops / step_s,
+               bf16_peak_share=flops / step_s / PEAK_BF16_FLOPS,
+               peak_used=PEAK_NAME)
+    if dev.type == "cuda":
+        rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        check(rec["max_memory_allocated"] < TRAIN_MEM_LIMIT,
+              f"{cfg.name}: peak memory {rec['max_memory_allocated']} B")
+        held = {"state": state}
+        del state
+
+        def one_step():
+            held["state"], _ = step(held["state"], batch)
+        rec["step_trace"] = device_profile(one_step, iters=1, top=6)
+    return rec
+
+
+def train_parity_phase(base=None, layers: int = PARITY_LAYERS,
+                       batch: int = 2, seq: int = TRAIN_PARITY_SEQ,
+                       device: str = "cuda", seed: int = 0) -> dict:
+    """(a) starcoder2-3b at full width cut to ``layers`` layers in fp32,
+    one train step on ``device`` against the CPU from the same weights
+    (drawn on ``device``, copied): the loss, every gradient and every
+    updated parameter within ``FP32_TOL``."""
+    from repro_torch.configs import starcoder2_3b
+    from repro_torch.data.tokens import token_batch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import value_and_grad
+    cfg = dataclasses.replace(base or starcoder2_3b.full(), n_layers=layers,
+                              dtype=torch.float32)
+    dev = torch.device(device)
+    params = tfm.init_params(torch.Generator(device=dev).manual_seed(seed),
+                             cfg, device=dev)
+    host_params = tree_map(lambda t: t.cpu(), params)
+    x, y = token_batch(0, batch, seq, cfg.vocab)
+    ocfg = opt.AdamWConfig(state_bits=32)
+
+    def train_step(p, b):
+        loss, grads = value_and_grad(
+            lambda q, bb: tfm.lm_loss(q, bb[0], bb[1], cfg), p, b)
+        newp, _, info = opt.apply_updates(p, grads, opt.init_state(p, ocfg),
+                                          ocfg)
+        return loss, grads, newp, info
+
+    got = train_step(params, batch_on(x, y, dev))
+    want = train_step(host_params, batch_on(x, y, "cpu"))
+    err = tensors_within(got[0], want[0], FP32_TOL, "train parity loss")
+    grad_err = param_err = 0.0
+    for i, (g, w) in enumerate(zip(tree_leaves(got[1]),
+                                   tree_leaves(want[1]))):
+        grad_err = max(grad_err, tensors_within(
+            g, w, FP32_TOL, f"train parity gradient, leaf {i}"))
+    for i, (g, w) in enumerate(zip(tree_leaves(got[2]),
+                                   tree_leaves(want[2]))):
+        param_err = max(param_err, tensors_within(
+            g, w, FP32_TOL, f"train parity updated param, leaf {i}"))
+    err = max(err, tensors_within(got[3]["gnorm"], want[3]["gnorm"],
+                                  FP32_TOL, "train parity gnorm"))
+    return {"layers": layers, "d_model": cfg.d_model, "batch": batch,
+            "seq": seq, "loss": float(want[0]), "max_abs_err": err,
+            "grad_max_abs_err": grad_err, "param_max_abs_err": param_err}
+
+
+def train_cli_phase(device: str = "cuda", preset=("--preset", "100m"),
+                    steps: int = CLI_STEPS, fail: int = CLI_FAIL,
+                    every: int = CLI_CKPT_EVERY) -> dict:
+    """(b) ``launch/train.py``'s loop on ``device``: ``steps`` steps with
+    checkpoints every ``every`` and a ``RuntimeError`` injected at step
+    ``fail``, against the same run uninterrupted: one restart, final losses
+    within 5e-2 (the reference's tolerance, ``tests/test_runtime.py``).
+    Then a state with 8-bit moments after one step is saved and restored
+    bit for bit."""
+    import tempfile
+
+    from repro_torch.data.tokens import token_batch
+    from repro_torch.launch import train as cli
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import init_train_state, make_train_step
+    rec = {"preset": list(preset), "steps": steps, "fail_at": fail,
+           "ckpt_every": every}
+    with tempfile.TemporaryDirectory() as tmp:
+        def args(name, ckpt_every):
+            return cli.parse_args([*preset, "--steps", str(steps),
+                                   "--ckpt-every", str(ckpt_every),
+                                   "--ckpt-dir", f"{tmp}/{name}",
+                                   "--device", device])
+
+        hurt = cli.train(args("hurt", every),
+                         fail_at={fail: RuntimeError("injected failure")})
+        clean = cli.train(args("clean", steps + 1))
+        stats = hurt["stats"]
+        # the loop resumes from the latest checkpoint published when the
+        # failure comes: the async save of the one before may still run
+        resumed = steps + fail - stats.steps_done
+        check(stats.restarts == 1, f"restarts {stats.restarts}")
+        check(resumed % every == 0 and 0 <= resumed < fail,
+              f"steps done {stats.steps_done}")
+        check(ckpt.latest_step(f"{tmp}/hurt") == steps, "last checkpoint")
+        check(abs(hurt["loss"] - clean["loss"]) < 5e-2,
+              f"final loss {hurt['loss']} against {clean['loss']} "
+              f"uninterrupted")
+        rec.update(config=hurt["config"].name, params=hurt["params"],
+                   restarts=stats.restarts, steps_done=stats.steps_done,
+                   resumed_from=resumed,
+                   stragglers=stats.stragglers, loss=hurt["loss"],
+                   loss_uninterrupted=clean["loss"],
+                   seconds=hurt["seconds"],
+                   seconds_uninterrupted=clean["seconds"],
+                   step_ms_ema=stats.step_time_ema * 1e3)
+
+        cfg = hurt["config"]
+        ocfg = opt.AdamWConfig(state_bits=8)
+        step = make_train_step(lambda p, b: tfm.lm_loss(p, b[0], b[1], cfg),
+                               ocfg)
+        x, y = token_batch(0, 8, 128, cfg.vocab)
+        state, _ = step(init_train_state(hurt["state"].params, ocfg),
+                        batch_on(x, y, device))
+        t0 = time.perf_counter()
+        path = ckpt.save(state, f"{tmp}/eight", step=1)
+        rec["save_s"] = time.perf_counter() - t0
+        rec["ckpt_bytes"] = sum(f.stat().st_size
+                                for f in Path(path).iterdir())
+        t0 = time.perf_counter()
+        back = ckpt.restore(state, f"{tmp}/eight")
+        rec["restore_s"] = time.perf_counter() - t0
+        leaves = list(zip(tree_leaves(state), tree_leaves(back)))
+        check(all(a.dtype == b.dtype and a.device == b.device
+                  and torch.equal(a, b) for a, b in leaves),
+              "the 8-bit checkpoint did not restore bit for bit")
+        rec["eight_bit_leaves"] = len(leaves)
+    return rec
+
+
+def molecule_batch(n_types: int, device, seed: int = 0,
+                   shape: tuple = MOLECULE, pad: int = MOLECULE_PAD):
+    """``shape`` = (atoms, bonds, molecules): random directed bonds inside
+    each molecule (no self-loops), positions N(0, 1.5²) per axis, atom
+    types below ``n_types``, padded to multiples of ``pad`` as the
+    reference's cell pads them (``launch/steps.py::gnn_cell``); DimeNet's
+    triplets from the bonds, up to 8 per padded edge."""
+    from repro_torch.models.gnn.graphdata import build_triplets, pad_graph
+    from repro_torch.utils import round_up
+    n, e, G = shape
+    rng = np.random.default_rng(seed)
+    src = np.concatenate([rng.integers(0, n, e) + g * n for g in range(G)])
+    dst = (src % n + rng.integers(1, n, src.shape[0])) % n \
+        + np.repeat(np.arange(G), e) * n
+    pos = (rng.standard_normal((n * G, 3)) * 1.5).astype(np.float32)
+    feat = rng.integers(0, n_types, n * G).astype(np.int32)
+    gid = np.repeat(np.arange(G), n).astype(np.int32)
+    gb = pad_graph(feat, src, dst, positions=pos, graph_id=gid,
+                   node_pad=pad, edge_pad=pad, device=device)
+    tri = build_triplets(src, dst, round_up(gb.n_edges * 8, pad))
+    targets = rng.standard_normal(G).astype(np.float32)
+    return gb, tri, targets
+
+
+def energy_forces(mod, params, gb, cfg):
+    """(per-graph energies, -dE/dpositions) by autograd."""
+    pos = gb.positions.detach().requires_grad_()
+    e = mod.forward(params, dataclasses.replace(gb, positions=pos), cfg)
+    (g,) = torch.autograd.grad(e.sum(), pos)
+    return e.detach(), -g
+
+
+def molecular_phase(configs=None, shape: tuple = MOLECULE,
+                    pad: int = MOLECULE_PAD, steps: int = GNN_STEPS,
+                    device: str = "cuda", seed: int = 0) -> dict:
+    """(c) DimeNet, NequIP and MACE at full width on ``shape``'s molecule
+    batch: forward pass, energy loss and gradient on ``device`` equal to
+    the CPU's (weights drawn on the CPU from a seed); ``steps`` trainer
+    steps (AdamW, fp32 moments, as the reference's ``gnn_cell``), timed;
+    NequIP's forces against the CPU's; for NequIP and MACE a rotation of
+    every position leaves the energies unchanged and rotates the forces."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.common import count_params, tree_leaves, tree_map
+    from repro_torch.models.gnn import dimenet, mace, nequip
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import (
+        init_train_state, make_train_step, value_and_grad,
+    )
+    from repro_torch.utils import host
+    configs = configs or {a: get_arch(a).full()
+                          for a in ("dimenet", "nequip", "mace")}
+    mods = {"dimenet": dimenet, "nequip": nequip, "mace": mace}
+    dev = torch.device(device)
+    q, r = np.linalg.qr(np.random.default_rng(seed + 1).standard_normal(
+        (3, 3)))
+    rot = q * np.sign(np.diag(r))
+    rot = torch.from_numpy((rot if np.linalg.det(rot) > 0 else -rot
+                            ).astype(np.float32))
+    out = {}
+    for arch, base in configs.items():
+        mod = mods[arch]
+        cfg = dataclasses.replace(base, n_graphs=shape[2])
+        hgb, tri, targets = molecule_batch(cfg.n_types, "cpu", seed, shape,
+                                           pad)
+        gb = molecule_batch(cfg.n_types, dev, seed, shape, pad)[0]
+
+        def batch(g, d):
+            b = {"graph": g, "targets": torch.from_numpy(targets).to(d)}
+            if arch == "dimenet":
+                b["triplets"] = tuple(torch.from_numpy(t).to(d) for t in tri)
+            return b
+
+        if arch == "dimenet":
+            def loss_fn(p, b):
+                return mod.energy_loss(p, b["graph"], cfg, b["triplets"],
+                                       b["targets"])
+
+            def fwd(p, b):
+                return mod.forward(p, b["graph"], cfg, b["triplets"])
+        else:
+            def loss_fn(p, b):
+                return mod.energy_loss(p, b["graph"], cfg, b["targets"])
+
+            def fwd(p, b):
+                return mod.forward(p, b["graph"], cfg)
+        params = mod.init_params(torch.Generator().manual_seed(seed), cfg,
+                                 device="cpu")
+        on_dev = tree_map(lambda t: t.to(dev), params)
+        bd, bh = batch(gb, dev), batch(hgb, "cpu")
+        with torch.no_grad():
+            err = tensors_within(fwd(on_dev, bd), fwd(params, bh), FP32_TOL,
+                                 f"{arch} forward, card against CPU")
+        loss, grads = value_and_grad(loss_fn, on_dev, bd)
+        want_loss, want = value_and_grad(loss_fn, params, bh)
+        err = max(err, tensors_within(loss, want_loss, FP32_TOL,
+                                      f"{arch} loss"))
+        grad_err = 0.0
+        for i, (g, w) in enumerate(zip(tree_leaves(grads),
+                                       tree_leaves(want))):
+            grad_err = max(grad_err, tensors_within(
+                g, w, FP32_TOL, f"{arch} gradient, leaf {i}"))
+        rec = {"params": count_params(params), "nodes": gb.n_nodes,
+               "edges": gb.n_edges, "graphs": cfg.n_graphs,
+               "loss": float(want_loss), "max_abs_err": err,
+               "grad_max_abs_err": grad_err}
+        if arch == "dimenet":
+            rec["triplets"] = [int(tri[2].sum()), int(tri[2].shape[0])]
+        if arch != "dimenet":
+            e, f = energy_forces(mod, on_dev, gb, cfg)
+            e2, f2 = energy_forces(mod, on_dev, dataclasses.replace(
+                gb, positions=gb.positions @ rot.to(dev).T), cfg)
+            rec["rotation_energy_err"] = tensors_within(
+                e2, e, FP32_TOL, f"{arch} energy under a rotation")
+            rec["rotation_force_err"] = tensors_within(
+                f2, f @ rot.to(dev).T, FP32_TOL,
+                f"{arch} forces under a rotation")
+        if arch == "nequip":
+            rec["forces_err"] = tensors_within(
+                mod.forces(on_dev, gb, cfg), mod.forces(params, hgb, cfg),
+                FP32_TOL, "nequip forces, card against CPU")
+        ocfg = opt.AdamWConfig()
+        step = make_train_step(loss_fn, ocfg)
+        state = init_train_state(on_dev, ocfg)
+        losses, ms = [], []
+        for _ in range(steps):
+            sync(dev)
+            t = time.perf_counter()
+            state, metrics = step(state, bd)
+            losses.append(float(host(metrics["loss"])))
+            sync(dev)
+            ms.append((time.perf_counter() - t) * 1e3)
+        check(all(np.isfinite(losses)), f"{arch}: a loss is not finite")
+        rec.update(train_losses=losses, train_step_ms=ms)
+        if dev.type == "cuda":
+            def forward():
+                with torch.no_grad():
+                    return fwd(on_dev, bd)
+            rec["forward_ms"] = cuda_ms(forward, 5)
+            held = {"state": state}
+
+            def one_step():
+                held["state"], _ = step(held["state"], bd)
+            rec["step_trace"] = device_profile(one_step, iters=2, top=4)
+        out[arch] = rec
+    return out
+
+
+def mind_batch(cfg, B: int, rng, device):
+    """Histories of ``cfg.hist_len`` items with ragged lengths (1 to
+    hist_len valid positions), and targets."""
+    hist = rng.integers(0, cfg.n_items, (B, cfg.hist_len)).astype(np.int32)
+    lens = rng.integers(1, cfg.hist_len + 1, B)
+    mask = np.arange(cfg.hist_len)[None, :] < lens[:, None]
+    target = rng.integers(0, cfg.n_items, B).astype(np.int32)
+    return {"hist": torch.from_numpy(hist).to(device),
+            "hist_mask": torch.from_numpy(mask).to(device),
+            "target": torch.from_numpy(target).to(device)}
+
+
+def mind_phase(cfg=None, batch: int = MIND_BATCH, steps: int = MIND_STEPS,
+               serve: tuple = MIND_SERVE, parity_batch: int = 256,
+               device: str = "cuda", seed: int = 0) -> dict:
+    """(d) MIND at full width, weights drawn on ``device`` from a seeded
+    generator and copied to the CPU: ``train_loss`` and its gradient at
+    ``parity_batch``, ``score_candidates`` at ``serve`` (users x
+    candidates) and ``retrieval_scores`` of one user against every item,
+    card equal to CPU; then ``steps`` trainer steps at ``batch`` (the
+    [batch, batch] in-batch logits), timed, with the peak memory."""
+    from repro_torch.configs import mind as mind_configs
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.recsys import mind
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import (
+        init_train_state, make_train_step, value_and_grad,
+    )
+    from repro_torch.utils import host
+    cfg = cfg or mind_configs.full()
+    dev = torch.device(device)
+    rng = np.random.default_rng(seed)
+    params = mind.init_params(torch.Generator(device=dev).manual_seed(seed),
+                              cfg, device=dev)
+    host_params = tree_map(lambda t: t.cpu(), params)
+
+    def loss_fn(p, b):
+        return mind.train_loss(p, b, cfg)
+
+    small = mind_batch(cfg, parity_batch, rng, "cpu")
+    loss, grads = value_and_grad(loss_fn, params, tree_map(
+        lambda t: t.to(dev), small))
+    want_loss, want = value_and_grad(loss_fn, host_params, small)
+    err = tensors_within(loss, want_loss, FP32_TOL, "MIND loss")
+    grad_err = 0.0
+    for i, (g, w) in enumerate(zip(tree_leaves(grads), tree_leaves(want))):
+        grad_err = max(grad_err, tensors_within(
+            g, w, FP32_TOL, f"MIND gradient, leaf {i}"))
+    users, n_cand = serve
+    s = mind_batch(cfg, users, rng, "cpu")
+    cand = torch.from_numpy(rng.integers(0, cfg.n_items, (users, n_cand)
+                                         ).astype(np.int32))
+    with torch.no_grad():
+        got = mind.score_candidates(params, s["hist"].to(dev),
+                                    s["hist_mask"].to(dev), cand.to(dev), cfg)
+        serve_err = tensors_within(got, mind.score_candidates(
+            host_params, s["hist"], s["hist_mask"], cand, cfg), FP32_TOL,
+            "MIND score_candidates")
+        ids = torch.arange(cfg.n_items, dtype=torch.int32)
+        got = mind.retrieval_scores(params, s["hist"][:1].to(dev),
+                                    s["hist_mask"][:1].to(dev), cfg,
+                                    ids.to(dev))
+        retrieval_err = tensors_within(got, mind.retrieval_scores(
+            host_params, s["hist"][:1], s["hist_mask"][:1], cfg, ids),
+            FP32_TOL, "MIND retrieval_scores")
+    rec = {"n_items": cfg.n_items, "embed_dim": cfg.embed_dim,
+           "parity_batch": parity_batch, "loss": float(want_loss),
+           "max_abs_err": err, "grad_max_abs_err": grad_err,
+           "serve": [users, n_cand], "serve_max_abs_err": serve_err,
+           "retrieval_candidates": cfg.n_items,
+           "retrieval_max_abs_err": retrieval_err}
+    del grads, want
+    if dev.type == "cuda":
+        rec["serve_ms"] = cuda_ms(lambda: mind.score_candidates(
+            params, s["hist"].to(dev), s["hist_mask"].to(dev), cand.to(dev),
+            cfg), 5)
+        rec["retrieval_ms"] = cuda_ms(lambda: mind.retrieval_scores(
+            params, s["hist"][:1].to(dev), s["hist_mask"][:1].to(dev), cfg,
+            ids.to(dev)), 5)
+        torch.cuda.reset_peak_memory_stats()
+    ocfg = opt.AdamWConfig()
+    step = make_train_step(loss_fn, ocfg)
+    state = init_train_state(params, ocfg)
+    del params
+    losses, ms = [], []
+    for _ in range(steps):
+        b = mind_batch(cfg, batch, rng, dev)
+        sync(dev)
+        t = time.perf_counter()
+        state, metrics = step(state, b)
+        losses.append(float(host(metrics["loss"])))
+        sync(dev)
+        ms.append((time.perf_counter() - t) * 1e3)
+    check(all(np.isfinite(losses)), f"MIND: a loss is not finite: {losses}")
+    rec.update(train_batch=batch, train_losses=losses, train_step_ms=ms,
+               logits_bytes=4 * batch * batch)
+    if dev.type == "cuda":
+        rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        check(rec["max_memory_allocated"] < TRAIN_MEM_LIMIT,
+              f"MIND: peak memory {rec['max_memory_allocated']} B")
+    return rec
+
+
+def run_training(ops, only, seconds: dict) -> dict:
+    """Phase 11 with every kernel count zeroed just before it and read just
+    after: the reference trains through ``chunked_attention`` and segment
+    sums, and no kernel has a backward, so the path launches none."""
+    out = {}
+    reset_launches(ops)
+    phases = (("train", "lm", train_lm_phase,
+               "11a: starcoder2-3b full width trained"),
+              ("train", "lm_parity", train_parity_phase,
+               "11a: card == CPU, one step at 2 layers in fp32"),
+              ("train", "cli", train_cli_phase,
+               "11b: launch/train.py recovered"),
+              ("molecular", "molecular", molecular_phase,
+               "11c: DimeNet, NequIP, MACE full width"),
+              ("recsys", "mind", mind_phase, "11d: MIND full width"))
+    for part, key, fn, what in phases:
+        if part not in only:
+            continue
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out[key] = fn()
+        seconds[f"train_{key}"] = time.perf_counter() - t0
+        log(f"phase {what}; " + json.dumps(out[key]))
+    launches = {fn: getattr(ops, fn).launches for fn in
+                ("block_spmm", "segment_multi_agg", "flash_attention")}
+    check(not any(launches.values()),
+          f"phase 11's path launched a kernel: {launches}")
+    log(f"phase 11: kernel launches on its path {json.dumps(launches)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def log_workload(what: str, rec: dict) -> None:
     """Phases 3-4's table: each read's median seconds without and with
@@ -2115,8 +2653,9 @@ def run_sharded(ops, seconds: dict) -> dict:
 
 
 def probe(only: list, seconds: dict) -> int:
-    """``--only=snb,finbench,sharded,pna,llm``: the named phases alone, for
-    a short call on the card; prints no result line."""
+    """``--only=snb,finbench,sharded,pna,llm,train,molecular,recsys``: the
+    named phases alone, for a short call on the card; prints no result
+    line."""
     from repro_torch.kernels import ops
     if "snb" in only:
         t0 = time.perf_counter()
@@ -2130,6 +2669,8 @@ def probe(only: list, seconds: dict) -> int:
         run_sharded(ops, seconds)
     if "pna" in only or "llm" in only:
         run_side_stacks(ops, only, seconds)
+    if {"train", "molecular", "recsys"} & set(only):
+        run_training(ops, only, seconds)
     log("seconds " + json.dumps(seconds))
     return 0
 
@@ -2262,6 +2803,7 @@ def main() -> int:
     gc.collect()                     # phase 9's sessions and their caches
     torch.cuda.empty_cache()
     side = run_side_stacks(ops, ("pna", "llm"), seconds, agg.pop("pna_x10"))
+    run_training(ops, ("train", "molecular", "recsys"), seconds)
     log("seconds " + json.dumps(seconds))
     by_phase = {"snb": snb_launches, "finbench": launches - snb_launches,
                 "serve": fin_serve["launches"], "gnn": gnn["launches"]}

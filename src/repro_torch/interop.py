@@ -5,10 +5,13 @@ the fields of a graph built by the reference package, pulled to the host —
 becomes the port's :class:`~repro_torch.core.graph.PropertyGraph` /
 :class:`~repro_torch.core.schema.GraphSchema`, so both packages can run on
 identical state.  :func:`sage_params_from_arrays`,
-:func:`pna_params_from_arrays` and :func:`transformer_params_from_arrays`
-carry model weights the same way: the layouts are the reference's, so each
-is a copy (bf16 weights cross as float32 arrays, numpy having no bf16, and
-are cast to ``dtype``).
+:func:`pna_params_from_arrays`, :func:`transformer_params_from_arrays`,
+:func:`dimenet_params_from_arrays`, :func:`nequip_params_from_arrays`,
+:func:`mace_params_from_arrays` and :func:`mind_params_from_arrays` carry
+model weights the same way, and :func:`train_state_from_arrays` a whole
+train state: the layouts are the reference's, so each is a copy (bf16
+weights cross as float32 arrays, numpy having no bf16, and are cast to
+``dtype``).
 """
 from __future__ import annotations
 
@@ -19,6 +22,8 @@ import torch
 
 from repro_torch.core.graph import PropertyGraph
 from repro_torch.core.schema import GraphSchema
+from repro_torch.train.optimizer import AdamState
+from repro_torch.train.trainer import TrainState
 from repro_torch.utils import resolve_device
 from repro_torch.utils.device import DeviceLike
 
@@ -98,3 +103,62 @@ def transformer_params_from_arrays(params: Mapping[str, Any],
     ``lm_head`` when untied) of arrays, as the port's tensors in ``dtype``
     on ``device``."""
     return _tree_from_arrays(params, dtype, resolve_device(device))
+
+
+def dimenet_params_from_arrays(params: Mapping[str, Any],
+                               dtype: torch.dtype = torch.float32,
+                               device: DeviceLike = None) -> Dict[str, Any]:
+    """DimeNet parameters (``embed``, a list of ``blocks``, ``rbf_emb``,
+    ``msg_init``, ``head``) of arrays, as tensors on ``device``."""
+    return _tree_from_arrays(params, dtype, resolve_device(device))
+
+
+def nequip_params_from_arrays(params: Mapping[str, Any],
+                              dtype: torch.dtype = torch.float32,
+                              device: DeviceLike = None) -> Dict[str, Any]:
+    """NequIP parameters (``embed``, a list of ``layers`` with ``radial`` /
+    ``self`` / ``mix``, ``head``) of arrays, as tensors on ``device``."""
+    return _tree_from_arrays(params, dtype, resolve_device(device))
+
+
+def mace_params_from_arrays(params: Mapping[str, Any],
+                            dtype: torch.dtype = torch.float32,
+                            device: DeviceLike = None) -> Dict[str, Any]:
+    """MACE parameters (``embed``, a list of ``layers`` with ``radial`` /
+    a list of ``combine`` / ``self``, ``head``) of arrays, as tensors on
+    ``device``."""
+    return _tree_from_arrays(params, dtype, resolve_device(device))
+
+
+def mind_params_from_arrays(params: Mapping[str, Any],
+                            dtype: torch.dtype = torch.float32,
+                            device: DeviceLike = None) -> Dict[str, Any]:
+    """MIND parameters (``items`` table, ``s_map``, ``out_mlp``) of arrays,
+    as tensors on ``device``."""
+    return _tree_from_arrays(params, dtype, resolve_device(device))
+
+
+def _exact_from_arrays(tree, dev: torch.device):
+    """Arrays as tensors of their own dtype (int8 codes stay int8)."""
+    if isinstance(tree, Mapping):
+        return {k: _exact_from_arrays(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_exact_from_arrays(v, dev) for v in tree]
+    return torch.from_numpy(np.array(tree)).to(dev)
+
+
+def train_state_from_arrays(state, dtype: torch.dtype = torch.float32,
+                            device: DeviceLike = None) -> TrainState:
+    """A train state of arrays with the reference's fields -- ``params``,
+    ``opt_state`` (``step``, ``m``, ``v``: fp32 moments, or 8-bit ones as
+    ``{"q": int8, "s": float32}`` per leaf) and ``ef`` (or None) -- as the
+    port's :class:`~repro_torch.train.trainer.TrainState` on ``device``:
+    parameters in ``dtype``, everything else in its own dtype."""
+    dev = resolve_device(device)
+    o = state.opt_state
+    return TrainState(
+        params=_tree_from_arrays(state.params, dtype, dev),
+        opt_state=AdamState(step=_exact_from_arrays(o.step, dev),
+                            m=_exact_from_arrays(o.m, dev),
+                            v=_exact_from_arrays(o.v, dev)),
+        ef=None if state.ef is None else _exact_from_arrays(state.ef, dev))

@@ -138,6 +138,16 @@ def embed(p: Params, ids: torch.Tensor) -> torch.Tensor:
     return p["table"][ids.long()]
 
 
+def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` along dim 0 (``[*idx.shape, *x.shape[1:]]``) by
+    ``index_select``, whose backward is an ``index_add_``: the backward of
+    advanced indexing sorts the indices and sums each run of a repeated
+    index serially, which padding (every padded edge or triplet points at
+    row 0) makes slow on the card."""
+    out = torch.index_select(x, 0, idx.reshape(-1).long())
+    return out.reshape(*idx.shape, *x.shape[1:])
+
+
 def tree_leaves(tree) -> list:
     """The tensors of a nested dict/list/tuple of parameters."""
     if isinstance(tree, dict):
@@ -148,12 +158,36 @@ def tree_leaves(tree) -> list:
 
 
 def tree_map(fn, tree):
-    """``fn`` applied to every tensor of a nested dict/list/tuple."""
+    """``fn`` applied to every tensor of a nested dict/list/tuple (a
+    NamedTuple keeps its type)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, v) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def tree_zip_map(fn, tree, *others):
+    """``fn(leaf, *subtrees)`` for every tensor of ``tree``, with the
+    subtrees of ``others`` at the same place; ``others`` may hold more
+    structure below a leaf of ``tree`` (8-bit moments hold ``{"q", "s"}``
+    there).  Returns a tree shaped like ``tree`` of ``fn``'s results."""
+    if isinstance(tree, dict):
+        return {k: tree_zip_map(fn, v, *(o[k] for o in others))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_zip_map(fn, v, *(o[i] for o in others))
+                          for i, v in enumerate(tree))
+    return fn(tree, *others) if isinstance(tree, torch.Tensor) else tree
+
+
+def tree_unflatten(like, leaves):
+    """A tree shaped like ``like`` whose tensors are ``leaves``, in
+    :func:`tree_leaves` order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
 
 
 def count_params(params) -> int:

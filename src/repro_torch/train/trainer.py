@@ -1,0 +1,129 @@
+"""Train steps: gradient accumulation and the int8-compressed
+data-parallel step, the port of ``repro.train.trainer``.
+
+``make_train_step`` gives ``(state, batch) -> (state, metrics)`` for any
+``loss_fn(params, batch) -> scalar``: gradients come from
+``torch.autograd.grad`` over the parameter tree's leaves, microbatches run
+one after another with their gradients summed in fp32 (the reference
+scans them).  ``make_compressed_dp_step`` splits the batch over
+``n_shards`` shards, takes each shard's gradient, reduces them through
+``compression.compressed_grad_reduce`` and updates one replicated state:
+the shards run one after another in this process (a process group across
+cards is ROADMAP A11.6's multi-device layer).
+
+The optimizer updates its moments in place, so a state passed to a step
+must not be used again; the step returns the state to go on with.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.models.common import tree_leaves, tree_map, tree_unflatten
+from repro_torch.train import optimizer as opt
+from repro_torch.train.compression import (
+    compressed_grad_reduce, init_error_feedback,
+)
+
+Params = Any
+
+
+class TrainState(NamedTuple):
+    params: Params
+    opt_state: opt.AdamState
+    ef: Optional[Params] = None      # error feedback (compressed DP only)
+
+
+def init_train_state(params: Params, cfg: opt.AdamWConfig,
+                     compressed_dp: bool = False,
+                     n_shards: int = 1) -> TrainState:
+    """``n_shards`` > 1 gives each error-feedback leaf a leading shard
+    axis (see ``compression.init_error_feedback``)."""
+    return TrainState(
+        params=params,
+        opt_state=opt.init_state(params, cfg),
+        ef=init_error_feedback(params, n_shards) if compressed_dp else None,
+    )
+
+
+def value_and_grad(loss_fn: Callable, params: Params, batch
+                   ) -> Tuple[torch.Tensor, Params]:
+    """(detached loss, gradient tree shaped like ``params``)."""
+    live = tree_map(lambda t: t.detach().requires_grad_(), params)
+    with torch.enable_grad():
+        loss = loss_fn(live, batch)
+    grads = torch.autograd.grad(loss, tree_leaves(live))
+    return loss.detach(), tree_unflatten(params, grads)
+
+
+def _split(batch, n: int) -> List:
+    """``batch``'s tensors cut into ``n`` equal parts along dim 0."""
+    parts = tree_map(lambda x: x.reshape(n, -1, *x.shape[1:]), batch)
+    return [tree_map(lambda x: x[i], parts) for i in range(n)]
+
+
+def make_train_step(loss_fn: Callable[[Params, Any], torch.Tensor],
+                    cfg: opt.AdamWConfig,
+                    grad_accum: int = 1) -> Callable:
+    """The standard train step; ``grad_accum`` microbatches cut from the
+    batch along dim 0, their fp32 gradients summed and averaged."""
+
+    def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        if grad_accum == 1:
+            loss, grads = value_and_grad(loss_fn, state.params, batch)
+        else:
+            loss, grads = 0.0, None
+            for mb in _split(batch, grad_accum):
+                mb_loss, g = value_and_grad(loss_fn, state.params, mb)
+                if grads is None:
+                    grads = tree_map(lambda t: t.to(torch.float32), g)
+                else:
+                    for acc, t in zip(tree_leaves(grads), tree_leaves(g)):
+                        acc.add_(t)
+                loss = loss + mb_loss
+                del g
+            loss = loss / grad_accum
+            for acc in tree_leaves(grads):
+                acc.div_(grad_accum)
+        newp, new_opt, info = opt.apply_updates(state.params, grads,
+                                                state.opt_state, cfg)
+        return TrainState(newp, new_opt, state.ef), {"loss": loss, **info}
+
+    return step
+
+
+def make_compressed_dp_step(loss_fn, cfg: opt.AdamWConfig,
+                            n_shards: int = 1) -> Callable:
+    """Train step with an int8-compressed mean of the shards' gradients.
+
+    The batch is cut into ``n_shards`` equal parts along dim 0, one a
+    shard; parameters and optimizer state are replicated (one copy), the
+    error feedback is per shard (``state.ef`` from ``init_train_state(...,
+    compressed_dp=True, n_shards=n_shards)``) and the loss is the shards'
+    mean."""
+
+    def step(state: TrainState, batch):
+        if n_shards == 1:
+            efs = [state.ef]
+        else:
+            efs = [tree_map(lambda e: e[i], state.ef)
+                   for i in range(n_shards)]
+        losses, grads = [], []
+        for mb in _split(batch, n_shards):
+            mb_loss, g = value_and_grad(loss_fn, state.params, mb)
+            losses.append(mb_loss)
+            grads.append(g)
+        red, new_efs = compressed_grad_reduce(grads, efs)
+        loss = sum(losses[1:], losses[0]) / float(n_shards)
+        newp, new_opt, info = opt.apply_updates(state.params, red,
+                                                state.opt_state, cfg)
+        if n_shards == 1:
+            new_ef = new_efs[0]
+        else:
+            new_ef = tree_unflatten(state.ef, [
+                torch.stack(shard) for shard in zip(
+                    *(tree_leaves(e) for e in new_efs))])
+        return TrainState(newp, new_opt, new_ef), {"loss": loss, **info}
+
+    return step

@@ -50,7 +50,13 @@ def test_port_has_the_slice_modules():
                  "configs.gemma_2b", "configs.yi_34b",
                  "configs.qwen2_moe_a2_7b", "configs.qwen3_moe_235b_a22b",
                  "configs.shapes", "data.tokens", "serve.llm",
-                 "launch.serve"):
+                 "launch.serve", "train.optimizer", "train.compression",
+                 "train.trainer", "train.checkpoint", "train.fault",
+                 "launch.train", "models.gnn.radial", "models.gnn.irreps",
+                 "models.gnn.dimenet", "models.gnn.nequip",
+                 "models.gnn.mace", "models.recsys.embedding",
+                 "models.recsys.mind", "configs.dimenet", "configs.nequip",
+                 "configs.mace", "configs.mind", "utils.jax_random"):
         assert f"repro_torch.{name}" in mods, name
     for src in ("block_spmm", "segment_agg", "flash_attention"):
         assert (PORT / "kernels" / "csrc" / f"{src}.cu").is_file(), src
@@ -466,3 +472,94 @@ def test_chip_smoke_side_stacks_rehearse_on_cpu():
     assert par["starcoder2-3b"]["engine"] == {
         "requests": 6, "slots": smoke.LLM_SLOTS, "partings": []}
     assert all(r["max_abs_err"] == 0.0 for r in par.values())
+
+
+# the modules phase 11 drives, and every port module they import
+TRAIN_PATH = ("repro_torch.launch.train", "repro_torch.train.trainer",
+              "repro_torch.train.fault", "repro_torch.models.gnn.dimenet",
+              "repro_torch.models.gnn.nequip", "repro_torch.models.gnn.mace",
+              "repro_torch.models.recsys.mind")
+
+
+def _port_imports(module: str) -> set:
+    """The port modules ``module`` imports, transitively (by AST)."""
+    seen, todo = set(), [module]
+    while todo:
+        mod = todo.pop()
+        if mod in seen:
+            continue
+        seen.add(mod)
+        rel = mod.split(".")[1:]
+        path = PORT.joinpath(*rel).with_suffix(".py")
+        if not path.is_file():
+            path = PORT.joinpath(*rel, "__init__.py")
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module] + [f"{node.module}.{a.name}"
+                                         for a in node.names]
+            for name in names:
+                if name.startswith("repro_torch.") and (
+                        PORT.joinpath(*name.split(".")[1:]).with_suffix(
+                            ".py").is_file()
+                        or PORT.joinpath(*name.split(".")[1:]).is_dir()):
+                    todo.append(name)
+    return seen
+
+
+def test_chip_smoke_train_phases_rehearse_on_cpu():
+    """Phase 11 at smoke sizes on the host: starcoder2-3b's smoke config
+    trained 2 steps of two microbatches and its 2-layer parity step (card
+    side on the CPU: every error 0), the training CLI's loop recovering
+    from a failure injected at step 5 of 8 (checkpoints every 2) and the
+    8-bit checkpoint round trip, DimeNet, NequIP and MACE at their smoke
+    configs on 4 molecules, MIND's smoke config at a batch of 64.  No
+    kernel wrapper counts a launch, and no module of phase 11's path
+    imports the kernels at all."""
+    import importlib.util
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    spec = importlib.util.spec_from_file_location("chip_smoke", SMOKE)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    for name in TRAIN_PATH:
+        assert not any(m.startswith("repro_torch.kernels")
+                       for m in _port_imports(name)), name
+    smoke.reset_launches(ops)
+
+    lm = get_arch("starcoder2-3b").smoke()
+    rec = smoke.train_lm_phase(lm, steps=2, seq=32, accum=2, device="cpu")
+    assert rec["params"] == lm.param_count() and len(rec["losses"]) == 2
+    assert rec["tokens_per_step"] == 64 and "max_memory_allocated" not in rec
+    assert rec["model_flops_per_step"] == 6.0 * lm.param_count() * 64
+    par = smoke.train_parity_phase(lm, batch=2, seq=32, device="cpu")
+    assert par["max_abs_err"] == par["grad_max_abs_err"] == \
+        par["param_max_abs_err"] == 0.0
+    cli = smoke.train_cli_phase(
+        "cpu", ("--preset", "smoke", "--arch", "starcoder2-3b"), steps=8,
+        fail=5, every=2)
+    assert cli["restarts"] == 1 and cli["resumed_from"] in (2, 4)
+    assert cli["steps_done"] == 8 + 5 - cli["resumed_from"]
+    assert cli["eight_bit_leaves"] > 3 * len(lm.__dataclass_fields__) - 40
+
+    mol = smoke.molecular_phase(
+        {a: get_arch(a).smoke() for a in ("dimenet", "nequip", "mace")},
+        shape=(6, 14, 4), pad=32, steps=2, device="cpu")
+    assert set(mol) == {"dimenet", "nequip", "mace"}
+    for arch, r in mol.items():
+        assert r["max_abs_err"] == r["grad_max_abs_err"] == 0.0, arch
+        assert r["nodes"] == 32 and r["edges"] == 64 and r["graphs"] == 4
+        assert len(r["train_losses"]) == 2
+    assert mol["nequip"]["forces_err"] == 0.0
+    assert mol["dimenet"]["triplets"][1] == 512
+
+    mind = smoke.mind_phase(get_arch("mind").smoke(), batch=64, steps=2,
+                            serve=(8, 5), parity_batch=16, device="cpu")
+    assert mind["max_abs_err"] == mind["grad_max_abs_err"] == 0.0
+    assert mind["serve_max_abs_err"] == mind["retrieval_max_abs_err"] == 0.0
+    assert mind["logits_bytes"] == 4 * 64 * 64
+    assert not any(getattr(ops, fn).launches for fn in
+                   ("block_spmm", "segment_multi_agg", "flash_attention"))
