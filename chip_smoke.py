@@ -57,7 +57,7 @@ Phases:
      answers before and after a ``knows`` fence; then one launch at each
      view's shape is held to the plain version and timed beside
      ``torch.matmul``;
-  9. sharded execution on full SNB: a session with
+  9. sharded execution on SNB at half scale: a session with
      ``ExecConfig(data_shards=4)`` and ``shard_devices=["cuda:0"] * 4``
      (four logical shards on one card, named explicitly) held read by read
      to an unsharded session on the same graph, without and with views,
@@ -99,17 +99,39 @@ Phases:
      the CPU, then 3 trainer steps at a batch of 32,768 (the shape's
      65,536 halved for memory) with the peak memory.
 
-``python3 chip_smoke.py --only=snb,finbench,sharded,pna,llm,train,molecular,recsys``
+ 12. the multi-device layer: four ranks on the one card, started by
+     ``launch/spawn.py`` with backend gloo named explicitly (collectives
+     staged through host memory), a 2 data x 2 model mesh: (a)
+     qwen2-moe-a2.7b's MoE layer at full width (60 experts top-4, d_model
+     2,048, bf16, 2 x 4,096 tokens a data rank) expert-parallel, equal to
+     ``moe_apply`` forward and backward at capacity factor 15 (nothing
+     drops; each rank in turn holds the single-process twin), then at the
+     config's 1.25 its dropped share, ms and collectives; (b) PNA at full
+     width on phase 10a's graph, dst-partitioned over the 4 ranks, forward,
+     loss and gradient equal to the single-process run; (c)
+     context-parallel attention at yi-34b's heads (56 q / 8 kv, Dh 128, S
+     4,096, B 2, bf16) equal to ``chunked_attention`` forward and backward,
+     and ``combine_partials`` of split-KV decode equal to
+     ``decode_attention``; then on a 4 x 1 mesh over the same ranks (d)
+     the 100m preset's compressed data-parallel step, 3 steps, parameters,
+     moments, loss and error feedback against the one-process step over 4
+     shards, and (e) MIND at full width, its in-batch logits' rows over the
+     4 ranks at a batch of 32,768, loss and gradients equal to rank 0's
+     single-process run; it prints each sub-phase's seconds, collectives
+     and per-rank peak memory.
+
+``python3 chip_smoke.py --only=snb,finbench,sharded,pna,llm,train,molecular,recsys,multidevice``
 runs the named phases alone (after the build; ``pna`` and ``llm`` are
 phase 10's halves; ``train``, ``molecular`` and ``recsys`` phase 11's:
-11a-b, 11c and 11d) and prints no result line.
+11a-b, 11c and 11d; ``multidevice`` phase 12) and prints no result line.
 
 Each kernel's launch count is zeroed just before its main path and read
 just after it: phases 3-4, the serve run of 7b and phase 8's path for
 ``block_spmm``, the ends of phases 5 and 6 for the others (comparison
 launches do not count); phase 9, whose hops are all segment hops, must
 launch none, and phases 10 and 11, whose reference modules call no
-kernel, must launch none either.  ``block_spmm`` and
+kernel, must launch none either; phase 12's ranks check that they
+launched none.  ``block_spmm`` and
 ``flash_attention`` also count launches by route: ``tc`` (tensor cores)
 and ``fp32`` (CUDA cores).  Every failed check raises, so the script exits
 non-zero and prints no result line.  It needs one CUDA device; without one
@@ -197,7 +219,10 @@ ONLINE_ROUNDS = 4
 READ_REPEATS = 3
 # phase 9: the sharded session, 4 logical shards on one card, and the cut
 # of phase 7a's serve script it serves beside its unsharded twin (with the
-# scheduler's window pinned, so both make the same decisions)
+# scheduler's window pinned, so both make the same decisions); on SNB cut
+# to half its scale once phase 12 joined the smoke (full SNB took 122.8 s
+# of a 599.1 s call on an NVIDIA H100 80GB HBM3 at 700 W, phase 12 63 s)
+SHARD_SCALE = 0.5
 SHARDS = 4
 SHARD_SERVE_CLIENTS = 4
 SHARD_SERVE_ROUNDS = 1
@@ -260,6 +285,27 @@ GNN_STEPS = 3
 MIND_BATCH = 32768
 MIND_STEPS = 3
 MIND_SERVE = (512, 100)
+# phase 12: four ranks on one card (gloo, collectives staged through host
+# memory), a 2 data x 2 model mesh, then 4 x 1 for the data-parallel parts;
+# qwen2-moe-a2.7b's MoE layer at full width on 2 x 4,096 tokens a data
+# rank, with drops off (capacity factor E/K = 15) and at its 1.25; PNA on
+# phase 10a's graph; yi-34b's attention heads at 4,096 tokens; the 100m
+# preset's compressed step; MIND at phase 11d's batch
+MD_RANKS = 4
+MD_MESH = (2, 2)
+MD_DP_MESH = (4, 1)
+MD_TIMEOUT = 600.0
+MD_MOE_TOKENS = (2, 4096)
+MD_CP = (2, 56, 8, 4096, 128)        # B, Hq, Hkv, S, Dh
+MD_DECODE_LEN = (3001, 4096)
+MD_DP_BATCH = (8, 128)
+MD_STEPS = 3
+# bf16 results against a single-process twin: relative Frobenius error
+# (a wrong block order or a lost term is of order 1; bf16 rounding of two
+# differently shaped GEMMs a few 2^-9); a token whose top-k experts differ
+# between the two runs is taken only at a near tie of its router logits
+BF16_REL = 2.0 ** -5
+MOE_NEAR_TIE = 0.05
 
 
 def log(msg: str) -> None:
@@ -2619,7 +2665,472 @@ def run_training(ops, only, seconds: dict) -> dict:
     return out
 
 
+# ------------------------------------------------------------- phase 12
+
+def multidevice_sizes(full: bool = True) -> dict:
+    """Phase 12's shapes: the card's, or smoke sizes for the CPU."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import preset_100m
+    if full:
+        qwen = get_arch("qwen2-moe-a2.7b").full()
+        return {"moe": qwen.moe, "d_model": qwen.d_model,
+                "moe_tokens": MD_MOE_TOKENS, "pna": get_arch("pna").full(),
+                "pna_graph": PNA_GRAPH, "cp": MD_CP, "cp_chunk": 512,
+                "decode_len": MD_DECODE_LEN, "lm": preset_100m(),
+                "dp_batch": MD_DP_BATCH, "mind": get_arch("mind").full(),
+                "mind_batch": MIND_BATCH, "timed": True}
+    qwen = get_arch("qwen2-moe-a2.7b").smoke()
+    return {"moe": qwen.moe, "d_model": qwen.d_model, "moe_tokens": (2, 16),
+            "pna": get_arch("pna").smoke(), "pna_graph": (48, 160),
+            "cp": (2, 8, 2, 64, 16), "cp_chunk": 16, "decode_len": (40, 64),
+            "lm": get_arch("starcoder2-3b").smoke(), "dp_batch": (4, 16),
+            "mind": get_arch("mind").smoke(), "mind_batch": 64,
+            "timed": False}
+
+
+def rel_err(got, want) -> float:
+    """||got - want|| / ||want|| in fp64 (the norm at least 1e-30)."""
+    g, w = got.detach().double(), want.detach().double().to(got.device)
+    return float(torch.linalg.vector_norm(g - w)
+                 / max(float(torch.linalg.vector_norm(w)), 1e-30))
+
+
+def bf16_within(got, want, what: str) -> float:
+    err = rel_err(got, want)
+    check(err <= BF16_REL, f"{what}: relative error {err:.3e} above "
+                           f"{BF16_REL:.3e}")
+    return err
+
+
+def _on(mesh, *tensors) -> None:
+    for t in tensors:
+        check(t.device == mesh.device,
+              f"rank {mesh.rank}: a result on {t.device}, not {mesh.device}")
+
+
+def _leaf_names(tree, prefix: str = "") -> list:
+    """Dotted names of a dict tree's leaves, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items()
+                for n in _leaf_names(v, f"{prefix}{k}.")]
+    return [prefix[:-1]]
+
+
+def _routing(x2d, w, cfg):
+    """Top-k expert sets and fp32 logits as the MoE layer routes rows."""
+    from repro_torch.models.moe import _mask_padded
+    logits = _mask_padded((x2d @ w).to(torch.float32), cfg)
+    idx = torch.topk(torch.softmax(logits, -1), cfg.top_k, -1).indices
+    return torch.sort(idx, -1).values, logits
+
+
+def md_moe(mesh, sz, dev) -> dict:
+    """12a: the expert-parallel layer against ``moe_apply`` where nothing
+    drops (each rank in turn holds the single-process twin), then at the
+    config's capacity factor: dropped share, times, collectives."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import collectives as C
+    from repro_torch.launch import sharding as S
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.moe import moe_apply, moe_init
+    from repro_torch.models.moe_sharded import (
+        _local_dispatch, expert_spec, local_capacity,
+    )
+    base, D = sz["moe"], sz["d_model"]
+    Bl, Sq = sz["moe_tokens"]
+    dp, mp = mesh.shape["data"], mesh.shape["model"]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    full = moe_init(gen, D, base, dtype=torch.bfloat16, device=dev)
+    x = torch.randn((Bl * dp, Sq, D), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    ct = torch.randn(x.shape, generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    wspec, xspec = expert_spec(("data",), "model"), ("data", None, None)
+    specs = {k: (wspec if k in ("wi", "wg", "wo") else
+                 tree_map(lambda _: (), v)) for k, v in full.items()}
+    no_drop = base.n_experts / base.top_k
+    rec = {"experts": base.n_experts, "top_k": base.top_k,
+           "d_ff_expert": base.d_ff_expert, "d_model": D,
+           "tokens_per_data_rank": Bl * Sq, "no_drop_capacity": no_drop}
+
+    def sharded(cf, grads=True):
+        cfg = dataclasses.replace(base, capacity_factor=cf, mesh=mesh)
+        p = {k: (S.local_block(v, specs[k], mesh) if k in ("wi", "wg", "wo")
+                 else v) for k, v in full.items()}
+        p = tree_map(lambda a: a.detach().clone().requires_grad_(grads), p)
+        xl = S.local_block(x, xspec, mesh).detach().clone().requires_grad_(
+            grads)
+        out, aux = moe_apply(p, xl, cfg)
+        if not grads:
+            return out, aux, p, xl, None
+        loss = torch.sum(out.float() * S.local_block(ct, xspec, mesh).float()
+                         ) / S.n_replicas(xspec, mesh)
+        gs = torch.autograd.grad(loss, tree_leaves(p) + [xl])
+        gs = [S.sum_over_replicas(g, sp, mesh) for g, sp in
+              zip(gs, S.spec_leaves(specs) + [xspec])]
+        return out, aux, p, xl, gs
+
+    out, aux, p, xl, gs = sharded(no_drop)
+    _on(mesh, out, aux, *gs)
+    # the tokens whose experts differ between the layer's per-peer router
+    # GEMMs and the twin's whole-batch one, on this rank's data block
+    T_l, T_loc = Bl * Sq, Bl * Sq // mp
+    d_idx = C.axis_index("data", mesh)
+    with torch.no_grad():
+        x_all = x.reshape(-1, D)
+        twin_sets, twin_logits = _routing(x_all, full["router"]["w"], base)
+        mine = x_all[d_idx * T_l:(d_idx + 1) * T_l]
+        peer_sets = torch.cat([_routing(mine[m * T_loc:(m + 1) * T_loc],
+                                        full["router"]["w"], base)[0]
+                               for m in range(mp)])
+        twin_mine = twin_sets[d_idx * T_l:(d_idx + 1) * T_l]
+        parted = torch.nonzero((peer_sets != twin_mine).any(-1))[:, 0]
+        top = torch.topk(twin_logits[d_idx * T_l:(d_idx + 1) * T_l],
+                         base.top_k + 1, -1).values
+        gaps = (top[:, -2] - top[:, -1])[parted]
+    check(bool((gaps < MOE_NEAR_TIE).all()),
+          f"12a: tokens routed apart from the twin away from a tie: "
+          f"{gaps.tolist()}")
+    rec["routing_partings"] = int(parted.numel())
+    errs = {}
+    for turn in range(mesh.size):
+        if turn == mesh.rank:
+            twin_cfg = dataclasses.replace(base, capacity_factor=no_drop)
+            fp = tree_map(lambda a: a.detach().clone().requires_grad_(),
+                          full)
+            fx = x.detach().clone().requires_grad_()
+            t_out, _ = moe_apply(fp, fx, twin_cfg)
+            t_gs = torch.autograd.grad(torch.sum(t_out.float() * ct.float()),
+                                       tree_leaves(fp) + [fx])
+            keep = torch.ones(T_l, dtype=torch.bool, device=dev)
+            keep[parted] = False
+            want = S.local_block(t_out, xspec, mesh).reshape(T_l, D)
+            errs["out"] = bf16_within(out.reshape(T_l, D)[keep], want[keep],
+                                      "12a output, sharded == moe_apply")
+            names = [f"grad {k}" for k in _leaf_names(full)] + ["grad x"]
+            for name, g, w, sp in zip(names, gs, t_gs,
+                                      S.spec_leaves(specs) + [xspec]):
+                errs[name] = bf16_within(g, S.local_block(w, sp, mesh),
+                                         f"12a {name}, sharded == moe_apply")
+            del fp, fx, t_out, t_gs, want
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier()
+    rec["no_drop_rel_err"] = {k: max(v, 0.0) for k, v in errs.items()}
+    del out, aux, p, xl, gs
+
+    # the config's capacity factor: dropped share, times, collectives
+    cf = base.capacity_factor
+    with torch.no_grad():
+        xt = S.local_block(x, xspec, mesh).reshape(T_l, D)
+        m_idx = C.axis_index("model", mesh)
+        C_loc = local_capacity(T_loc, base)
+        _, meta = _local_dispatch(xt[m_idx * T_loc:(m_idx + 1) * T_loc],
+                                  full["router"]["w"], base, C_loc)
+        keep = meta[2]
+        dropped = C.psum(torch.stack([(~keep).sum(), keep.new_tensor(
+            keep.numel(), dtype=torch.int64)]), ("data", "model"), mesh)
+    rec["capacity_factor"] = cf
+    rec["c_loc"] = C_loc
+    rec["dropped_share"] = float(dropped[0]) / float(dropped[1])
+    mesh.reset_counts()
+    with torch.no_grad():
+        sharded(cf, grads=False)
+    rec["forward_collectives"] = {k: dict(v) for k, v in mesh.counts.items()}
+    mesh.reset_counts()
+    sharded(cf)
+    rec["forward_backward_collectives"] = {
+        k: dict(v) for k, v in mesh.counts.items()}
+    if sz["timed"]:
+        def fwd():
+            with torch.no_grad():
+                sharded(cf, grads=False)
+        rec["forward_ms"] = timed(fwd, 3, dev)[0] * 1e3
+        rec["forward_backward_ms"] = timed(lambda: sharded(cf), 3,
+                                           dev)[0] * 1e3
+    return rec
+
+
+def md_pna(mesh, sz, dev) -> dict:
+    """12b: PNA dst-partitioned over every rank == the single-process run
+    on the same device."""
+    from repro_torch.graphops.distributed import partition_edges_by_dst
+    from repro_torch.launch import sharding as S
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.gnn import pna
+    from repro_torch.models.gnn.graphdata import GraphBatch
+    cfg = sz["pna"]
+    gb = pna_graph(cfg, *sz["pna_graph"], dev)
+    N, axes = gb.n_nodes, ("data", "model")
+    check(N % mesh.size == 0, f"12b: {N} nodes do not split over the ranks")
+    perm, emask, _ = partition_edges_by_dst(
+        gb.edge_src.cpu().numpy(), gb.edge_dst.cpu().numpy(), N, mesh.size)
+    perm_t = torch.from_numpy(perm).to(dev)
+    emask_t = torch.from_numpy(emask).to(dev) & gb.edge_mask[perm_t]
+    nspec, espec = (axes, None), (axes,)
+    lb = lambda t, sp: S.local_block(t, sp, mesh)  # noqa: E731
+    local = GraphBatch(
+        node_feat=lb(gb.node_feat, nspec),
+        edge_src=lb(gb.edge_src[perm_t], espec),
+        edge_dst=lb(gb.edge_dst[perm_t], espec),
+        edge_mask=lb(emask_t, espec), node_mask=lb(gb.node_mask, espec),
+        graph_id=lb(gb.graph_id, espec), labels=lb(gb.labels, espec))
+    params = pna.init_params(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+    params = tree_map(lambda t: t.to(dev).requires_grad_(), params)
+    scfg = dataclasses.replace(cfg, mesh=mesh, shard_axes=axes)
+    out = pna.forward(params, local, scfg)
+    loss = pna.loss_fn(params, local, scfg)
+    gs = torch.autograd.grad(loss / mesh.size, tree_leaves(params))
+    gs = [S.sum_over_replicas(g, (), mesh) for g in gs]
+    _on(mesh, out, loss, *gs)
+    want_out = pna.forward(params, gb, cfg)
+    want_loss = pna.loss_fn(params, gb, cfg)
+    want = torch.autograd.grad(want_loss, tree_leaves(params))
+    err = tensors_within(out, lb(want_out, nspec), FP32_TOL,
+                         "12b PNA forward, sharded == single")
+    err = max(err, tensors_within(loss, want_loss, FP32_TOL, "12b PNA loss"))
+    grad_err = max(tensors_within(g, w, PNA_GRAD_TOL, f"12b PNA grad {i}")
+                   for i, (g, w) in enumerate(zip(gs, want)))
+    return {"nodes": N, "edges": int(gb.edge_mask.sum()),
+            "edges_per_rank": int(local.edge_src.numel()),
+            "loss": float(loss.detach()), "max_abs_err": err,
+            "grad_max_abs_err": grad_err}
+
+
+def md_attention(mesh, sz, dev) -> dict:
+    """12c: context-parallel attention == ``chunked_attention`` on this
+    rank's batch row, forward and backward; then ``combine_partials`` of
+    split-KV decode partials == ``decode_attention``."""
+    from repro_torch.launch import sharding as S
+    from repro_torch.models import attention as attn
+    B, Hq, Hkv, Sq, Dh = sz["cp"]
+    chunk = sz["cp_chunk"]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    bf = torch.bfloat16
+    q, ct = (torch.randn((B, Hq, Sq, Dh), generator=gen, device=dev,
+                         dtype=bf) for _ in range(2))
+    k, v = (torch.randn((B, Hkv, Sq, Dh), generator=gen, device=dev,
+                        dtype=bf) for _ in range(2))
+    spec = ("data", None, "model", None)
+    ql, kl, vl = (S.local_block(t, spec, mesh).detach().clone()
+                  .requires_grad_() for t in (q, k, v))
+    o = attn.context_parallel_attention(ql, kl, vl, mesh, causal=True,
+                                        chunk=chunk)
+    gs = torch.autograd.grad(
+        torch.sum(o.float() * S.local_block(ct, spec, mesh).float()),
+        [ql, kl, vl])
+    _on(mesh, o, *gs)
+    row = ("data", None, None, None)
+    tq, tk, tv = (S.local_block(t, row, mesh).detach().clone()
+                  .requires_grad_() for t in (q, k, v))
+    want = attn.chunked_attention(tq, tk, tv, causal=True, chunk=chunk)
+    t_gs = torch.autograd.grad(
+        torch.sum(want.float() * S.local_block(ct, row, mesh).float()),
+        [tq, tk, tv])
+    seq = (None, None, "model", None)
+    errs = {"out": bf16_within(o, S.local_block(want, seq, mesh),
+                               "12c output, context-parallel == chunked")}
+    for n, g, w in zip("qkv", gs, t_gs):
+        errs[f"grad {n}"] = bf16_within(g, S.local_block(w, seq, mesh),
+                                        f"12c grad {n}")
+    lens = torch.tensor(sz["decode_len"], device=dev)
+    dq = torch.randn((B, Hq, Dh), generator=gen, device=dev, dtype=bf)
+    valid = torch.arange(Sq, device=dev)[None, :] < lens[:, None]
+    kv = (None, None, "model", None)
+    parts = attn.decode_attention_partial(
+        dq, S.local_block(k, kv, mesh), S.local_block(v, kv, mesh),
+        S.local_block(valid, (None, "model"), mesh))
+    got = attn.combine_partials(*parts, "model", mesh)
+    _on(mesh, got)
+    errs["decode"] = bf16_within(got, attn.decode_attention(dq, k, v, lens),
+                                 "12c combine_partials == decode_attention")
+    return {"shape": list(sz["cp"]), "chunk": chunk,
+            "decode_len": list(sz["decode_len"]), "rel_err": errs}
+
+
+def md_dp_step(mesh, sz, dev) -> dict:
+    """12d: the group's compressed step == the one-process step over as
+    many shards, parameters, moments, loss and this rank's error
+    feedback."""
+    from repro_torch.data.tokens import token_batch
+    from repro_torch.launch import collectives as C
+    from repro_torch.launch import sharding as S
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import (
+        init_train_state, make_compressed_dp_step,
+    )
+    cfg, (B, Sq) = sz["lm"], sz["dp_batch"]
+    n = mesh.shape["data"]
+    ocfg = opt.AdamWConfig(warmup_steps=2, total_steps=MD_STEPS)
+
+    def loss_fn(p, b):
+        return tfm.lm_loss(p, b[0], b[1], cfg)
+
+    def params():
+        return tfm.init_params(torch.Generator(device=dev).manual_seed(0),
+                               cfg, device=dev)
+
+    def batch(s):
+        x, y = token_batch(s, B, Sq, cfg.vocab)
+        return torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+
+    state = init_train_state(params(), ocfg, compressed_dp=True)
+    step = make_compressed_dp_step(loss_fn, ocfg, mesh=mesh)
+    twin = init_train_state(params(), ocfg, compressed_dp=True, n_shards=n)
+    twin_step = make_compressed_dp_step(loss_fn, ocfg, n_shards=n)
+    losses, twin_losses = [], []
+    for s in range(MD_STEPS):
+        x, y = batch(s)
+        state, m = step(state, tuple(S.local_block(t, ("data", None), mesh)
+                                     for t in (x, y)))
+        losses.append(float(m["loss"]))
+        twin, m = twin_step(twin, (x, y))
+        twin_losses.append(float(m["loss"]))
+    _on(mesh, *tree_leaves(state.params))
+    i = C.axis_index("data", mesh)
+    pairs = {"params": (tree_leaves(state.params), tree_leaves(twin.params)),
+             "moments": (tree_leaves(state.opt_state),
+                         tree_leaves(twin.opt_state)),
+             "ef": (tree_leaves(state.ef), [e[i] for e in tree_leaves(
+                 twin.ef)])}
+    rec = {"steps": MD_STEPS, "params": sum(t.numel() for t in pairs[
+        "params"][0]), "losses": losses, "twin_losses": twin_losses}
+    for name, (got, want) in pairs.items():
+        rec[f"{name}_bitwise"] = all(torch.equal(a, b)
+                                     for a, b in zip(got, want))
+        rec[f"{name}_max_abs_diff"] = max(
+            float((a.double() - b.double()).abs().max()) for a, b in
+            zip(got, want))
+        for j, (a, b) in enumerate(zip(got, want)):
+            tensors_within(a, b, FP32_TOL, f"12d {name} leaf {j}")
+    rec["loss_max_abs_diff"] = max(abs(a - b) for a, b in
+                                   zip(losses, twin_losses))
+    return rec
+
+
+def md_mind(mesh, sz, dev) -> dict:
+    """12e: MIND's loss and gradients with the in-batch logits' rows over
+    the data ranks == rank 0's single-process run at the same batch."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import sharding as S
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.recsys import mind
+    cfg, B = sz["mind"], sz["mind_batch"]
+    params = mind.init_params(torch.Generator(device=dev).manual_seed(0),
+                              cfg, device=dev)
+    for t in tree_leaves(params):
+        t.requires_grad_()
+    batch = mind_batch(cfg, B, np.random.default_rng(3), dev)
+    local = {k: S.local_block(v, ("data",) + (None,) * (v.dim() - 1), mesh)
+             for k, v in batch.items()}
+    scfg = dataclasses.replace(cfg, logits_pspec=("data", None))
+    loss = mind.train_loss(params, local, scfg, mesh)
+    gs = torch.autograd.grad(loss / mesh.size, tree_leaves(params))
+    gs = [S.sum_over_replicas(g, (), mesh) for g in gs]
+    _on(mesh, loss, *gs)
+    rec = {"batch": B, "rows_per_rank": B // mesh.shape["data"],
+           "logits_bytes_per_rank": 4 * B * (B // mesh.shape["data"]),
+           "loss": float(loss.detach())}
+    if dev.type == "cuda":
+        rec["sharded_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    dist.barrier()
+    if mesh.rank == 0:
+        want_loss = mind.train_loss(params, batch, cfg)
+        want = torch.autograd.grad(want_loss, tree_leaves(params))
+        rec["max_abs_err"] = tensors_within(loss, want_loss, FP32_TOL,
+                                            "12e MIND loss")
+        rec["grad_max_abs_err"] = max(
+            tensors_within(g, w, FP32_TOL, f"12e MIND grad {i}")
+            for i, (g, w) in enumerate(zip(gs, want)))
+    dist.barrier()
+    return rec
+
+
+def multidevice_ranks(rank, world_size, init_method, device, full):
+    """Phase 12's rank program: 12a-c on a 2 x 2 mesh, 12d-e on 4 x 1 over
+    the same ranks.  Every check raises; rank 0 returns the records."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_rank_mesh
+    sz = multidevice_sizes(full)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    mesh = make_rank_mesh(world_size, rank, init_method, MD_MESH,
+                          backend="gloo", devices=dev)
+    dp_mesh = make_rank_mesh(world_size, rank, init_method, MD_DP_MESH,
+                             backend="gloo", devices=dev)
+    out = {"rank": rank, "device": str(mesh.device), "seconds": {},
+           "peak_bytes": {}, "collectives": {}}
+    for name, fn, m in (("12a_moe", md_moe, mesh), ("12b_pna", md_pna, mesh),
+                        ("12c_attention", md_attention, mesh),
+                        ("12d_dp_step", md_dp_step, dp_mesh),
+                        ("12e_mind", md_mind, dp_mesh)):
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        m.reset_counts()
+        dist.barrier()
+        t0 = time.perf_counter()
+        out[name] = fn(m, sz, dev)
+        sync(dev)
+        dist.barrier()
+        out["seconds"][name] = time.perf_counter() - t0
+        out["collectives"][name] = {k: dict(v) for k, v in m.counts.items()}
+        if dev.type == "cuda":
+            out["peak_bytes"][name] = torch.cuda.max_memory_allocated(dev)
+        gc.collect()
+    out["kernel_launches"] = {fn: getattr(ops, fn).launches for fn in
+                              ("block_spmm", "segment_multi_agg",
+                               "flash_attention")}
+    check(not any(out["kernel_launches"].values()),
+          f"rank {rank}: phase 12 launched a kernel")
+    return out
+
+
+def multidevice_phase(device: str = "cuda:0", full: bool = True) -> dict:
+    """Phase 12: ``MD_RANKS`` ranks on ``device`` (one card, or the CPU),
+    backend gloo named explicitly; the records of every rank."""
+    from repro_torch.launch.spawn import spawn
+    ranks = spawn(multidevice_ranks, MD_RANKS, device, full,
+                  timeout=MD_TIMEOUT)
+    rec = {k: v for k, v in ranks[0].items() if k.startswith("12")}
+    rec["backend"] = "gloo"
+    rec["devices"] = [r["device"] for r in ranks]
+    rec["seconds"] = ranks[0]["seconds"]
+    rec["collectives_rank0"] = ranks[0]["collectives"]
+    rec["peak_bytes_per_rank"] = [r["peak_bytes"] for r in ranks]
+    return rec
+
+
 # ---------------------------------------------------------------------------
+
+def run_multidevice(seconds: dict) -> dict:
+    """Phase 12 on the card, after the parent's cached memory is freed."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec = multidevice_phase()
+    seconds["multidevice"] = time.perf_counter() - t0
+    for name in ("12a_moe", "12b_pna", "12c_attention", "12d_dp_step",
+                 "12e_mind"):
+        log(f"phase {name}: " + json.dumps(rec[name]))
+    log("phase 12: 4 ranks, backend gloo named explicitly, devices "
+        f"{rec['devices']}; seconds {json.dumps(rec['seconds'])}; "
+        f"collectives of rank 0 {json.dumps(rec['collectives_rank0'])}; "
+        f"peak bytes per rank {json.dumps(rec['peak_bytes_per_rank'])}; "
+        f"nvidia-smi: {nvidia_smi()}.  These are host-staged gloo times of "
+        "four ranks on one card, not NVLink")
+    return rec
+
 
 def log_workload(what: str, rec: dict) -> None:
     """Phases 3-4's table: each read's median seconds without and with
@@ -2641,7 +3152,7 @@ def run_sharded(ops, seconds: dict) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset_launches(ops)
     t0 = time.perf_counter()
-    shard = sharded_phase()
+    shard = sharded_phase(SHARD_SCALE)
     seconds["sharded"] = time.perf_counter() - t0
     shard["launches"] = ops.block_spmm.launches
     shard["seconds"] = seconds["sharded"]
@@ -2653,9 +3164,9 @@ def run_sharded(ops, seconds: dict) -> dict:
 
 
 def probe(only: list, seconds: dict) -> int:
-    """``--only=snb,finbench,sharded,pna,llm,train,molecular,recsys``: the
-    named phases alone, for a short call on the card; prints no result
-    line."""
+    """``--only=snb,finbench,sharded,pna,llm,train,molecular,recsys,
+    multidevice``: the named phases alone, for a short call on the card;
+    prints no result line."""
     from repro_torch.kernels import ops
     if "snb" in only:
         t0 = time.perf_counter()
@@ -2671,6 +3182,8 @@ def probe(only: list, seconds: dict) -> int:
         run_side_stacks(ops, only, seconds)
     if {"train", "molecular", "recsys"} & set(only):
         run_training(ops, only, seconds)
+    if "multidevice" in only:
+        run_multidevice(seconds)
     log("seconds " + json.dumps(seconds))
     return 0
 
@@ -2804,6 +3317,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     side = run_side_stacks(ops, ("pna", "llm"), seconds, agg.pop("pna_x10"))
     run_training(ops, ("train", "molecular", "recsys"), seconds)
+    run_multidevice(seconds)
     log("seconds " + json.dumps(seconds))
     by_phase = {"snb": snb_launches, "finbench": launches - snb_launches,
                 "serve": fin_serve["launches"], "gnn": gnn["launches"]}

@@ -3,7 +3,10 @@ MoE 60 routed top-4 + 4 shared [hf:Qwen/Qwen1.5-MoE-A2.7B].
 
 Expert count 60 is not divisible by a 16-way model axis, so the
 reference shards this arch with *tensor-parallel experts* (d_model/d_ff
-sharded, expert axis replicated); the port runs it on one device."""
+sharded, expert axis replicated).  The port's expert-parallel layer
+(``models/moe_sharded.py``) runs its MoE over a rank mesh whose model axis
+divides 60, or pads the experts (``n_experts_alloc``) as the reference's
+cells do; whole-model sharded steps are ROADMAP A11.6d."""
 import torch
 
 from repro_torch.configs.base import ArchSpec

@@ -2,8 +2,9 @@
 vocab=151936, MoE 128 routed top-8 [assignment spec].
 
 The reference shards its 128 experts 16-way over a model axis (expert
-parallelism); the port runs the smoke config, and the full one only in
-its parameter count, on one device."""
+parallelism); the port's expert-parallel layer runs its MoE over a rank
+mesh, and the sharding rules (``launch/sharding.py``) place its full
+parameters; the port runs the smoke config end to end on one device."""
 import torch
 
 from repro_torch.configs.base import ArchSpec

@@ -1,16 +1,58 @@
-"""Host-side edge partitioning for sharded execution (numpy).
+"""Edge partitioning for sharded execution, and the dst-partitioned
+aggregation over a rank mesh.
 
 Sharded plans split node columns into ``n_shards`` equal ranges and give
 each shard the edges whose **scatter-side** endpoint it owns, so a hop
 gathers from the full (all-gathered) frontier and scatters into local
 columns only: no cross-shard scatter exists.  Maintenance routing anchors
-each label's delta sweeps to an owner shard.
+each label's delta sweeps to an owner shard.  The partitioners are numpy,
+on the host.
+
+The GNN layers use the same scheme over a rank mesh
+(:func:`dst_partitioned_aggregate`): nodes shard over the mesh axes (row
+partition), edges are pre-partitioned by destination owner, and each rank
+all-gathers node features once a layer, gathers sources locally and
+segment-reduces into its own node range only: no cross-rank scatter and
+no reduction collective.  Its backward is the gather's reduce-scatter.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Sequence, Tuple
 
 import numpy as np
+import torch
+
+from repro_torch.launch import collectives as C
+from repro_torch.launch.mesh import Mesh
+
+
+def flat_axis_index(axes: Sequence[str], mesh: Mesh) -> int:
+    """This rank's linear index over a tuple of mesh axes (row-major)."""
+    idx = 0
+    for a in axes:
+        idx = idx * mesh.shape[a] + C.axis_index(a, mesh)
+    return idx
+
+
+def all_gather_axes(x: torch.Tensor, axes: Sequence[str], mesh: Mesh,
+                    axis: int = 0) -> torch.Tensor:
+    return C.all_gather(x, tuple(axes), mesh, axis=axis)
+
+
+def dst_partitioned_aggregate(h_l: torch.Tensor, src_l: torch.Tensor,
+                              dst_l: torch.Tensor, mask_l: torch.Tensor,
+                              msg_and_reduce: Callable, mesh: Mesh,
+                              axes: Sequence[str]):
+    """This rank's part of a sharded gather-aggregate.
+
+    ``h_l`` [n_loc, D]: this rank's node rows; ``src_l``, ``dst_l``,
+    ``mask_l``: its edges (global ids, partitioned by destination owner).
+    ``msg_and_reduce(h_full, src_l, dst_local, mask_l, n_loc)`` runs on
+    this rank alone; its result is this rank's node rows."""
+    n_loc = h_l.shape[0]
+    h_full = all_gather_axes(h_l, axes, mesh, axis=0)          # [N, D]
+    offset = flat_axis_index(axes, mesh) * n_loc
+    return msg_and_reduce(h_full, src_l, dst_l - offset, mask_l, n_loc)
 
 
 def shard_owner(label_id: int, n_shards: int) -> int:

@@ -7,14 +7,17 @@
   (q reshaped to [B, Hkv, rep, S, D]).
 * ``decode_attention`` — one new token against a padded cache with a
   per-row length.
-* ``decode_attention_partial`` — split-KV (flash-decoding) partials
-  (num, denom, max) over one sequence shard of the cache.
+* ``decode_attention_partial`` / ``combine_partials`` — split-KV
+  (flash-decoding) partials (num, denom, max) over one sequence shard of
+  the cache, and their log-sum-exp combine over a mesh axis.
+* ``context_parallel_attention`` — one model-axis peer's S/mp queries
+  against the all-gathered keys and values.
 
 The dtypes are the reference's: products in the inputs' dtype, logits cast
 to fp32, probabilities cast to ``v``'s dtype before the PV product.  None
 of these routes through the hand-written ``flash_attention`` kernel (the
-reference's modules do not call theirs).  Context-parallel attention and
-the cross-shard combine of partials need a mesh and are not ported yet.
+reference's modules do not call theirs).  The mesh functions take this
+rank's blocks and a rank mesh (``launch/mesh.py``).
 """
 from __future__ import annotations
 
@@ -22,6 +25,9 @@ from typing import Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.launch import collectives as C
+from repro_torch.launch.mesh import Mesh
 
 NEG_INF = -1e30
 
@@ -113,6 +119,27 @@ def chunked_attention(q, k, v, *, causal: bool = True, chunk: int = 512,
     return (acc / safe[..., None]).to(q.dtype)
 
 
+def context_parallel_attention(ql, kl, vl, mesh: Mesh, *,
+                               model_axis: str = "model",
+                               causal: bool = True,
+                               chunk: int = 512) -> torch.Tensor:
+    """Context-parallel attention: this model-axis peer's blocks of q, k
+    and v, [B_l, H, S/mp, D] each (the sequence sharded over
+    ``model_axis``), to its block of the output.
+
+    When head counts do not divide the model axis (yi-34b: 56 q / 8 kv
+    heads), each peer takes an S/mp query slice, all-gathers K/V once
+    ([B, Hkv, S, D]) and runs the chunked online softmax with its global
+    row offset.  The backward pass reduce-scatters the K/V gradients."""
+    mp = mesh.shape[model_axis]
+    S_loc = ql.shape[2]
+    S = S_loc * mp
+    kf = C.all_gather(kl, model_axis, mesh, axis=2)
+    vf = C.all_gather(vl, model_axis, mesh, axis=2)
+    return chunked_attention(ql, kf, vf, causal=causal, chunk=min(chunk, S),
+                             q_offset=C.axis_index(model_axis, mesh) * S_loc)
+
+
 # ------------------------------------------------------------- decode paths
 
 def decode_attention(q, k_cache, v_cache, kv_len) -> torch.Tensor:
@@ -151,3 +178,15 @@ def decode_attention_partial(q, k_shard, v_shard, valid_mask
     num = torch.einsum("bgrs,bgsd->bgrd", p.to(v_shard.dtype), v_shard
                        ).to(torch.float32)
     return (num.reshape(B, Hq, D), denom.reshape(B, Hq), m.reshape(B, Hq))
+
+
+def combine_partials(num, denom, m, axis_name: str, mesh: Mesh
+                     ) -> torch.Tensor:
+    """Log-sum-exp combine of split-KV partials across a mesh axis: every
+    peer's [B, Hq, D] output."""
+    m_glob = C.pmax(m, axis_name, mesh)
+    scale = torch.exp(m - m_glob)
+    num_g = C.psum(num * scale[..., None], axis_name, mesh)
+    den_g = C.psum(denom * scale, axis_name, mesh)
+    safe = torch.where(den_g == 0.0, 1.0, den_g)
+    return num_g / safe[..., None]

@@ -6,8 +6,15 @@ the reference's: segment sums and extrema over the edge list
 (``index_add`` / ``scatter_reduce``), mask-aware.  It does not route
 through the hand-written ``segment_multi_agg`` kernel, which computes the
 same four aggregates over bucketed messages; the reference's PNA does not
-either.  The sharded layer (dst-partitioned edges, one feature all-gather)
-is not ported yet: a config with a mesh raises.
+either.
+
+With ``cfg.mesh`` (a rank mesh) and ``shard_axes``, each layer runs
+dst-partitioned as the reference's ``_layer_sharded``: the batch a rank
+passes is its block (nodes split over ``shard_axes`` in equal ranges, its
+edges those whose destination it owns, from
+``graphops.distributed.partition_edges_by_dst``), each layer all-gathers
+the node features once, and the forward pass returns this rank's rows.
+``loss_fn`` and the pooled readout sum over the shards.
 """
 from __future__ import annotations
 
@@ -16,9 +23,12 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.graphops.distributed import dst_partitioned_aggregate
 from repro_torch.graphops.segment import (
     segment_extremum, segment_mean, segment_sum,
 )
+from repro_torch.launch import collectives as C
+from repro_torch.launch.mesh import require_rank_mesh
 from repro_torch.models.common import (
     Params, dense, dense_init, mlp, mlp_init,
 )
@@ -37,9 +47,10 @@ class PNAConfig:
     graph_level: bool = False        # molecule regime: pooled readout
     n_graphs: int = 1                # graphs per batch (molecule regime)
     dtype: torch.dtype = torch.float32
-    # distributed aggregation over dst-partitioned edges: not ported yet
-    # (setting it raises)
+    # distributed aggregation over dst-partitioned edges: a rank mesh (see
+    # launch/mesh.py) and the axes the nodes shard over
     mesh: object = None
+    shard_axes: tuple = ()
 
 
 def init_params(gen: torch.Generator, cfg: PNAConfig,
@@ -109,28 +120,65 @@ def _layer_local(lp, h_full, h_l, src_l, dst_local, emask_l, nmask_l,
     return torch.relu(h_l + upd) * nmask_l[:, None]
 
 
+def _layer_sharded(lp, h_l, gb: GraphBatch, cfg: PNAConfig, delta: float):
+    """One layer on this rank's block: dst-partitioned edges, one feature
+    all-gather; returns this rank's rows."""
+    axes = tuple(cfg.shard_axes)
+    n_loc = h_l.shape[0]
+
+    def local(h_full, src_l, dst_local, emask_l, _n):
+        dst_local = torch.clamp(dst_local, 0, n_loc - 1)
+        return _layer_local(lp, h_full, h_l, src_l, dst_local, emask_l,
+                            gb.node_mask, n_loc, delta)
+
+    return dst_partitioned_aggregate(h_l, gb.edge_src, gb.edge_dst,
+                                     gb.edge_mask, local, cfg.mesh, axes)
+
+
+def _pool_sharded(h_l, gb: GraphBatch, cfg: PNAConfig) -> torch.Tensor:
+    """The per-graph mean over every rank's nodes (``segment_mean`` of the
+    whole batch): sums and counts summed over the shards."""
+    axes = tuple(cfg.shard_axes)
+    sums = segment_sum(h_l * gb.node_mask[:, None], gb.graph_id,
+                       cfg.n_graphs)
+    cnt = segment_sum(h_l.new_ones(h_l.shape[:1]), gb.graph_id, cfg.n_graphs)
+    sums, cnt = C.psum(sums, axes, cfg.mesh), C.psum(cnt, axes, cfg.mesh)
+    return sums / torch.clamp_min(cnt, 1e-9)[:, None]
+
+
 def forward(params: Params, gb: GraphBatch, cfg: PNAConfig) -> torch.Tensor:
-    if cfg.mesh is not None:
-        raise NotImplementedError(
-            "PNA's sharded layer (dst-partitioned aggregation over a mesh) "
-            "is not ported yet: ROADMAP A11.6")
+    """Logits of every node (graph-level: of every graph); with a mesh, of
+    this rank's nodes (graph-level: every graph's, on every rank)."""
+    sharded = cfg.mesh is not None
+    if sharded:
+        require_rank_mesh(cfg.mesh, "PNAConfig.mesh")
     n = gb.n_nodes
     x = gb.node_feat.to(cfg.dtype)
     h = torch.relu(dense(params["proj"], x))
     delta = max(math.log(cfg.avg_degree + 1.0), 1e-3)
     for lp in params["layers"]:
+        if sharded:
+            h = _layer_sharded(lp, h, gb, cfg, delta)
+            continue
         h = _layer_local(lp, h, h, gb.edge_src, gb.edge_dst, gb.edge_mask,
                          gb.node_mask, n, delta)
     if cfg.graph_level:
-        pooled = segment_mean(h * gb.node_mask[:, None], gb.graph_id,
-                              cfg.n_graphs)
+        pooled = (_pool_sharded(h, gb, cfg) if sharded else segment_mean(
+            h * gb.node_mask[:, None], gb.graph_id, cfg.n_graphs))
         return mlp(params["head"], pooled, act=torch.relu)
     return mlp(params["head"], h, act=torch.relu)
 
 
 def loss_fn(params: Params, gb: GraphBatch, cfg: PNAConfig) -> torch.Tensor:
+    """Masked mean node NLL; with a mesh, over every rank's nodes (the same
+    value on every rank)."""
     logits = forward(params, gb, cfg).to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, gb.labels.long()[:, None])[:, 0]
     mask = gb.node_mask.to(torch.float32)
-    return torch.sum((logz - gold) * mask) / torch.clamp_min(mask.sum(), 1.0)
+    total, count = torch.sum((logz - gold) * mask), mask.sum()
+    if cfg.mesh is not None:
+        axes = tuple(cfg.shard_axes)
+        total = C.psum(total, axes, cfg.mesh)
+        count = C.psum(count, axes, cfg.mesh)
+    return total / torch.clamp_min(count, 1.0)

@@ -8,7 +8,8 @@ GEMMs.  Tokens past an expert's capacity are dropped: the stable sort keeps
 the reference's choice of which.  Shared experts (Qwen-MoE) are always
 active; a Switch-style load-balancing loss comes back beside the output.
 Experts padded up to ``n_experts_alloc`` are masked out of the router.
-The expert-parallel layer over a mesh is not ported yet.
+With ``mesh`` (a rank mesh) the layer is the expert-parallel one of
+``moe_sharded.py``.
 """
 from __future__ import annotations
 
@@ -30,10 +31,17 @@ class MoEConfig:
     n_shared_experts: int = 0       # shared width: n_shared * d_ff_expert
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
-    # the reference's sharding hooks, not ported yet (setting either
-    # raises): a dispatch PartitionSpec, the expert-parallel layer's mesh
+    # a PartitionSpec for the dispatched [E, C, D] buffer, an XLA SPMD
+    # hint: not ported (setting it raises; ROADMAP A11.6d)
     dispatch_pspec: Optional[tuple] = None
+    # a rank mesh (launch/mesh.py) routes the layer through the explicit
+    # expert-parallel layer (moe_sharded.py)
     mesh: object = None
+    data_axes: tuple = ("data",)
+    model_axis: str = "model"
+    # sequence-parallel integration: the layer input/output stay S-sharded
+    # over the model axis (no per-layer slice/gather collectives)
+    seq_sharded: bool = False
     # allocated expert count (>= n_experts): pads the expert axis; the
     # router masks padded experts so they never receive tokens
     n_experts_alloc: int = 0
@@ -78,11 +86,17 @@ def moe_init(gen: torch.Generator, d_model: int, cfg: MoEConfig,
 
 def moe_apply(p: Params, x: torch.Tensor, cfg: MoEConfig
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [B, S, D] -> (out [B, S, D], aux_loss fp32 scalar)."""
-    if cfg.mesh is not None or cfg.dispatch_pspec is not None:
+    """x: [B, S, D] -> (out [B, S, D], aux_loss fp32 scalar); with
+    ``cfg.mesh``, this rank's blocks (see ``moe_sharded``)."""
+    if cfg.dispatch_pspec is not None:
         raise NotImplementedError(
-            "the expert-parallel MoE layer over a mesh is not ported yet: "
-            "ROADMAP A11.3 (moe_sharded)")
+            "dispatch_pspec is an XLA SPMD sharding hint; the port shards "
+            "the layer explicitly (MoEConfig.mesh) and has no pjit path: "
+            "ROADMAP A11.6d (launch/steps.py)")
+    if cfg.mesh is not None:
+        from repro_torch.models.moe_sharded import moe_apply_sharded
+        return moe_apply_sharded(p, x, cfg, cfg.mesh, cfg.data_axes,
+                                 cfg.model_axis)
     B, S, D = x.shape
     T = B * S
     xt = x.reshape(T, D)

@@ -9,19 +9,27 @@ interests.
 The routing logits start from a fixed draw, the reference's
 ``jax.random.normal(PRNGKey(7), (1, L, K))``: the port takes it from its
 own numpy copy of JAX's generator (``utils.jax_random``), so both packages
-route from the same logits.  ``logits_pspec`` (a sharding of the [B, B]
-in-batch logits) needs a device mesh, which the port does not have yet:
-setting it raises.
+route from the same logits.
+
+``logits_pspec = (data_axes, None)`` shards the [B, B] in-batch logits by
+rows over the rank mesh passed to ``train_loss`` (the reference takes the
+ambient mesh): ``train_loss`` takes this rank's [B/dp] block of the batch,
+computes its rows against the all-gathered target embeddings, with the
+gold labels moved by its first row, and returns the mean over every row
+(the ``pmean`` of the ranks' means), equal to the single-device loss.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import lru_cache
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.graphops.distributed import flat_axis_index
+from repro_torch.launch import collectives as C
+from repro_torch.launch.mesh import require_rank_mesh
 from repro_torch.models.common import (
     Params, dense, dense_init, mlp, mlp_init,
 )
@@ -43,16 +51,19 @@ class MINDConfig:
     capsule_iters: int = 3
     hist_len: int = 50
     dtype: Any = torch.float32
-    # the reference's sharding of the [B, B] in-batch logits: not ported
-    # yet (setting it raises)
+    # row sharding of the [B, B] in-batch logits, (data axes, None), over
+    # the rank mesh given to train_loss; without it one device holds B x B
     logits_pspec: object = None
 
 
-def _check_single_device(cfg: MINDConfig) -> None:
-    if cfg.logits_pspec is not None:
-        raise NotImplementedError(
-            "logits_pspec needs a device mesh, which the port does not "
-            "have yet: ROADMAP A11.6")
+def _row_axes(cfg: MINDConfig, mesh) -> Tuple[str, ...]:
+    """The axes the logits' rows shard over (checks the spec and mesh)."""
+    require_rank_mesh(mesh, "MINDConfig.logits_pspec")
+    rows, cols = cfg.logits_pspec
+    if cols is not None or rows is None:
+        raise ValueError(f"logits_pspec {cfg.logits_pspec}: the port shards "
+                         f"the in-batch logits by rows only, (axes, None)")
+    return (rows,) if isinstance(rows, str) else tuple(rows)
 
 
 def init_params(gen: torch.Generator, cfg: MINDConfig,
@@ -113,17 +124,26 @@ def label_aware_attention(caps: torch.Tensor, target_emb: torch.Tensor,
 
 
 def train_loss(params: Params, batch: Dict[str, torch.Tensor],
-               cfg: MINDConfig) -> torch.Tensor:
-    """Sampled-softmax with in-batch negatives."""
-    _check_single_device(cfg)
+               cfg: MINDConfig, mesh=None) -> torch.Tensor:
+    """Sampled-softmax with in-batch negatives; with ``logits_pspec``, this
+    rank's rows of the batch on the rank mesh ``mesh`` (the loss is every
+    row's mean)."""
     caps = interests(params, batch["hist"], batch["hist_mask"], cfg)
     tgt = embedding_lookup(params["items"], batch["target"])   # [B, D]
     user = label_aware_attention(caps, tgt)                    # [B, D]
-    logits = (user @ tgt.T).to(torch.float32)                  # [B, B]
-    labels = torch.arange(logits.shape[0], device=logits.device)
+    first = 0
+    if cfg.logits_pspec is not None:
+        axes = _row_axes(cfg, mesh)
+        first = flat_axis_index(axes, mesh) * tgt.shape[0]
+        tgt = C.all_gather(tgt, axes, mesh, axis=0)            # [B, D]
+    logits = (user @ tgt.T).to(torch.float32)                  # [B(/dp), B]
+    labels = first + torch.arange(logits.shape[0], device=logits.device)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[:, None])[:, 0]
-    return torch.mean(logz - gold)
+    loss = torch.mean(logz - gold)
+    if cfg.logits_pspec is not None:
+        loss = C.pmean(loss, axes, mesh)
+    return loss
 
 
 def score_candidates(params: Params, hist: torch.Tensor,

@@ -11,8 +11,15 @@ checkpointed when ``remat`` is set and gradients are on.  Entry points:
                       KV cache padded to ``max_len``
   decode_step       — one token against the cache
 
-Sharding constraints (``act_pspec``) and context-parallel attention
-(``cp_mesh``) need a mesh and are not ported yet: setting either raises.
+With ``cp_mesh`` (a rank mesh), ``forward`` and ``lm_loss`` take this
+rank's batch block (batch sharded over ``cp_data_axes``, replicated over
+the model axis) and run each layer's attention context-parallel
+(``attention.context_parallel_attention``): each model peer attends for
+its S/mp queries and the output is all-gathered back, so activations
+outside attention stay replicated over the model axis; the loss is the
+mean over every data rank.  ``prefill`` and ``decode_step`` ignore it, as
+the reference's do.  Layer-boundary sharding constraints (``act_pspec``)
+are XLA SPMD hints with no eager counterpart: setting one raises.
 """
 from __future__ import annotations
 
@@ -23,6 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch import collectives as C
+from repro_torch.launch.mesh import require_rank_mesh
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (
     Params, apply_rope, dense_init, embed, embedding_init, rmsnorm,
@@ -52,10 +61,13 @@ class TransformerConfig:
     attn_chunk: int = 512
     remat: bool = True
     dtype: Any = torch.float32
-    # the reference's mesh hooks, not ported yet (setting either raises):
-    # a layer-boundary activation PartitionSpec, context-parallel attention
+    # a layer-boundary activation PartitionSpec, an XLA SPMD hint: not
+    # ported (setting it raises; ROADMAP A11.6d)
     act_pspec: Optional[tuple] = None
+    # context-parallel attention over a rank mesh's model axis, the batch
+    # sharded over cp_data_axes (see attention.context_parallel_attention)
     cp_mesh: Any = None
+    cp_data_axes: tuple = ("data",)
 
     @property
     def q_dim(self) -> int:
@@ -90,11 +102,12 @@ class TransformerConfig:
         return L * (attn_p + ffn + 2 * d) + self.vocab * d + d
 
 
-def _check_single_device(cfg: TransformerConfig) -> None:
-    if cfg.act_pspec is not None or cfg.cp_mesh is not None:
+def _refuse_act_pspec(cfg: TransformerConfig) -> None:
+    if cfg.act_pspec is not None:
         raise NotImplementedError(
-            "act_pspec and cp_mesh need a device mesh, which the port does "
-            "not have yet: ROADMAP A11.6")
+            "act_pspec is an XLA SPMD sharding constraint with no eager "
+            "counterpart; whole-model sharded execution is ROADMAP A11.6d "
+            "(launch/steps.py)")
 
 
 # ------------------------------------------------------------------- params
@@ -183,20 +196,39 @@ def _ffn(lp: Params, x: torch.Tensor, cfg: TransformerConfig):
     return x + y, aux
 
 
+def _cp_attention(q, k, v, cfg: TransformerConfig) -> torch.Tensor:
+    """This model peer's S/mp slice of q, k and v through context-parallel
+    attention, the output all-gathered back to the full sequence."""
+    mesh = cfg.cp_mesh
+    mp = mesh.shape["model"]
+    S_loc = q.shape[2] // mp
+    lo = C.axis_index("model", mesh) * S_loc
+    ql, kl, vl = (t[:, :, lo:lo + S_loc] for t in (q, k, v))
+    o = attn.context_parallel_attention(ql, kl, vl, mesh, causal=True,
+                                        chunk=cfg.attn_chunk)
+    return C.all_gather(o, "model", mesh, axis=2)
+
+
 def _layer_fwd(lp: Params, x: torch.Tensor, cfg: TransformerConfig, cos, sin,
                positions) -> Tuple[torch.Tensor, torch.Tensor]:
     B, S, _ = x.shape
     q, k, v = _qkv(lp, x, cfg, cos, sin, positions)
-    o = attn.chunked_attention(q, k, v, causal=True,
-                               chunk=min(cfg.attn_chunk, S))
+    if cfg.cp_mesh is not None:
+        o = _cp_attention(q, k, v, cfg)
+    else:
+        o = attn.chunked_attention(q, k, v, causal=True,
+                                   chunk=min(cfg.attn_chunk, S))
     o = o.transpose(1, 2).reshape(B, S, cfg.q_dim)
     return _ffn(lp, x + o @ lp["wo"]["w"], cfg)
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens [B, S] -> (logits [B, S, V], aux_loss)."""
-    _check_single_device(cfg)
+    """tokens [B, S] -> (logits [B, S, V], aux_loss); with ``cp_mesh``,
+    this rank's batch block in and out."""
+    _refuse_act_pspec(cfg)
+    if cfg.cp_mesh is not None:
+        require_rank_mesh(cfg.cp_mesh, "TransformerConfig.cp_mesh")
     B, S = tokens.shape
     dev = tokens.device
     x = _embed_tokens(params, tokens, cfg)
@@ -222,7 +254,10 @@ def lm_loss(params: Params, tokens: torch.Tensor, targets: torch.Tensor,
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
-    return torch.mean(logz - gold) + aux
+    nll = torch.mean(logz - gold)
+    if cfg.cp_mesh is not None:
+        nll = C.pmean(nll, cfg.cp_data_axes, cfg.cp_mesh)
+    return nll + aux
 
 
 # -------------------------------------------------------------- serving path
@@ -243,7 +278,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
     """Run the prompt; returns (last-position logits [B, V], KV cache with
     ``k``/``v`` [L, B, Hkv, max_len, D] zero past the prompt and ``len``
     [B] int32)."""
-    _check_single_device(cfg)
+    _refuse_act_pspec(cfg)
     B, S = tokens.shape
     dev = tokens.device
     x = _embed_tokens(params, tokens, cfg)
@@ -277,7 +312,7 @@ def decode_step(params: Params, token: torch.Tensor,
     them there as the reference's one-hot write does; a row whose ``len``
     has reached ``max_len`` writes nothing and reads RoPE at the last
     position, as the reference's one-hot and clamped gather give it."""
-    _check_single_device(cfg)
+    _refuse_act_pspec(cfg)
     B = token.shape[0]
     dev = token.device
     max_len = cache["k"].shape[3]

@@ -1,13 +1,15 @@
 """Gradient compression for data-parallel reduction (int8 + error
 feedback): the port of ``repro.train.compression``.
 
-The reference runs inside ``shard_map`` and reduces over a mesh axis with
-``pmax`` and ``psum``.  Here the shards are a list of per-shard tensors
-driven by one process (as ``graphops.distributed`` stands in for
-``shard_map``): the scale is shared, the max over shards of each shard's
-absmax over 127, and the int8 codes are summed in int32.  The residual of
-each shard's quantization is kept as its error feedback and re-injected at
-the next step (EF-SGD).
+The scale is shared, the max over shards of each shard's absmax over
+127, and the int8 codes are summed in int32, then divided by the number
+of shards.  The residual of each shard's quantization is kept as its error
+feedback and re-injected at the next step (EF-SGD).
+
+Two forms compute the same numbers: the ``*_axis`` functions are the
+reference's, one rank's tensor reduced over a mesh axis (``pmax`` of the
+absmax, an int32 ``all_reduce`` of the codes); the others take a list of
+per-shard tensors driven by one process.
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ from typing import Any, List, Sequence, Tuple
 
 import torch
 
+from repro_torch.launch import collectives as C
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models.common import tree_leaves, tree_map, tree_unflatten
 
 Params = Any
@@ -60,6 +64,36 @@ def compressed_grad_reduce(grads: Sequence[Params], ef: Sequence[Params]
             shard.append(r)
     return (tree_unflatten(grads[0], reduced),
             [tree_unflatten(grads[0], r) for r in resid])
+
+
+def quantize_int8_axis(x: torch.Tensor, axis_name: str, mesh: Mesh
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """This rank's int8 codes under a scale shared across the mesh axis."""
+    amax = C.pmax(torch.max(torch.abs(x)), axis_name, mesh)
+    scale = torch.clamp(amax / 127.0, min=1e-12)
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def compressed_psum_axis(x: torch.Tensor, axis_name: str, mesh: Mesh
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8-compressed mean over the mesh axis: (the mean, this rank's
+    residual)."""
+    q, scale = quantize_int8_axis(x, axis_name, mesh)
+    residual = x - q.to(torch.float32) * scale
+    tot = C.psum(q.to(torch.int32), axis_name, mesh)
+    return (tot.to(torch.float32) * scale / float(mesh.shape[axis_name]),
+            residual)
+
+
+def compressed_grad_reduce_axis(grads: Params, ef: Params, axis_name: str,
+                                mesh: Mesh) -> Tuple[Params, Params]:
+    """Tree-wise compressed mean over the mesh axis with error feedback:
+    (the reduced gradient tree, this rank's new error feedback)."""
+    outs = [compressed_psum_axis(g.to(torch.float32) + e, axis_name, mesh)
+            for g, e in zip(tree_leaves(grads), tree_leaves(ef))]
+    return (tree_unflatten(grads, [o[0] for o in outs]),
+            tree_unflatten(grads, [o[1] for o in outs]))
 
 
 def init_error_feedback(params: Params, n_shards: int = 1) -> Params:

@@ -3,7 +3,8 @@
 
 Failure is simulated in one process (an injected exception); the control
 flow is the real thing: periodic async checkpoints, bounded retry with
-restore-from-latest, and step-time EMA straggler detection.  Each step
+restore-from-latest, step-time EMA straggler detection, and an elastic
+re-placement of a restored tree onto a (smaller) mesh of ranks.  Each step
 reads its loss to the host once, which also waits for the step's device
 work (the reference's ``jax.block_until_ready``), so step times are device
 times.
@@ -16,7 +17,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
-from repro_torch.models.common import tree_map
+from repro_torch.models.common import tree_map, tree_zip_map
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.utils import host, resolve_device
 from repro_torch.utils.device import DeviceLike
@@ -98,10 +99,19 @@ class FaultTolerantLoop:
         return state, metrics
 
 
-def remesh(tree, device: DeviceLike = None):
-    """Elastic move: every tensor of ``tree`` onto ``device`` (the card
-    unless the caller names another).  The reference re-places a tree
-    under a new mesh's shardings; restoring onto a smaller mesh of cards
-    is the multi-device layer's work (ROADMAP A11.6)."""
-    dev = resolve_device(device)
-    return tree_map(lambda x: x.to(dev), tree)
+def remesh(tree, device: DeviceLike = None, *, specs=None, mesh=None):
+    """Elastic re-placement of a host tree (a restored checkpoint).
+
+    With ``mesh`` (a rank mesh) and ``specs`` (a tree of spec tuples shaped
+    like ``tree``, e.g. from ``launch.sharding.params_shardings`` for the
+    new mesh): this rank's block of every tensor, on the mesh's device.
+    Without: every tensor onto ``device`` (the card unless the caller names
+    another)."""
+    if mesh is None:
+        dev = resolve_device(device)
+        return tree_map(lambda x: x.to(dev), tree)
+    from repro_torch.launch.mesh import require_rank_mesh
+    from repro_torch.launch.sharding import local_block
+    require_rank_mesh(mesh, "remesh")
+    return tree_zip_map(
+        lambda x, sp: local_block(x, sp, mesh).to(mesh.device), tree, specs)

@@ -5,11 +5,10 @@ data-parallel step, the port of ``repro.train.trainer``.
 ``loss_fn(params, batch) -> scalar``: gradients come from
 ``torch.autograd.grad`` over the parameter tree's leaves, microbatches run
 one after another with their gradients summed in fp32 (the reference
-scans them).  ``make_compressed_dp_step`` splits the batch over
-``n_shards`` shards, takes each shard's gradient, reduces them through
-``compression.compressed_grad_reduce`` and updates one replicated state:
-the shards run one after another in this process (a process group across
-cards is ROADMAP A11.6's multi-device layer).
+scans them).  ``make_compressed_dp_step`` reduces the data-parallel
+gradients in int8 with error feedback: over a rank mesh's data axis (each
+rank its batch block, as the reference's ``shard_map`` step), or over
+``n_shards`` shards of the batch run one after another in this process.
 
 The optimizer updates its moments in place, so a state passed to a step
 must not be used again; the step returns the state to go on with.
@@ -20,10 +19,12 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.launch import collectives as C
+from repro_torch.launch.mesh import require_rank_mesh
 from repro_torch.models.common import tree_leaves, tree_map, tree_unflatten
 from repro_torch.train import optimizer as opt
 from repro_torch.train.compression import (
-    compressed_grad_reduce, init_error_feedback,
+    compressed_grad_reduce, compressed_grad_reduce_axis, init_error_feedback,
 )
 
 Params = Any
@@ -94,14 +95,33 @@ def make_train_step(loss_fn: Callable[[Params, Any], torch.Tensor],
 
 
 def make_compressed_dp_step(loss_fn, cfg: opt.AdamWConfig,
-                            n_shards: int = 1) -> Callable:
+                            n_shards: int = 1, mesh=None,
+                            data_axis: str = "data") -> Callable:
     """Train step with an int8-compressed mean of the shards' gradients.
 
-    The batch is cut into ``n_shards`` equal parts along dim 0, one a
-    shard; parameters and optimizer state are replicated (one copy), the
-    error feedback is per shard (``state.ef`` from ``init_train_state(...,
+    With ``mesh`` (a rank mesh): each rank passes its block of the batch;
+    parameters and optimizer state are replicated over ``data_axis``, each
+    rank keeps its own error feedback (``init_train_state(...,
+    compressed_dp=True)``) and the loss is the ``pmean``.  Without: the
+    batch is cut into ``n_shards`` equal parts along dim 0, one a shard, in
+    this process; the error feedback is per shard (``init_train_state(...,
     compressed_dp=True, n_shards=n_shards)``) and the loss is the shards'
-    mean."""
+    mean.  Both give the same parameters and error feedback."""
+    if mesh is not None:
+        require_rank_mesh(mesh, "make_compressed_dp_step")
+        if n_shards != 1:
+            raise ValueError("give a mesh or n_shards, not both")
+
+        def group_step(state: TrainState, batch):
+            loss, grads = value_and_grad(loss_fn, state.params, batch)
+            red, new_ef = compressed_grad_reduce_axis(grads, state.ef,
+                                                      data_axis, mesh)
+            loss = C.pmean(loss, data_axis, mesh)
+            newp, new_opt, info = opt.apply_updates(state.params, red,
+                                                    state.opt_state, cfg)
+            return TrainState(newp, new_opt, new_ef), {"loss": loss, **info}
+
+        return group_step
 
     def step(state: TrainState, batch):
         if n_shards == 1:

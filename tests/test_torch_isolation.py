@@ -56,7 +56,9 @@ def test_port_has_the_slice_modules():
                  "models.gnn.dimenet", "models.gnn.nequip",
                  "models.gnn.mace", "models.recsys.embedding",
                  "models.recsys.mind", "configs.dimenet", "configs.nequip",
-                 "configs.mace", "configs.mind", "utils.jax_random"):
+                 "configs.mace", "configs.mind", "utils.jax_random",
+                 "launch.collectives", "launch.sharding", "launch.spawn",
+                 "models.moe_sharded"):
         assert f"repro_torch.{name}" in mods, name
     for src in ("block_spmm", "segment_agg", "flash_attention"):
         assert (PORT / "kernels" / "csrc" / f"{src}.cu").is_file(), src
@@ -563,3 +565,37 @@ def test_chip_smoke_train_phases_rehearse_on_cpu():
     assert mind["logits_bytes"] == 4 * 64 * 64
     assert not any(getattr(ops, fn).launches for fn in
                    ("block_spmm", "segment_multi_agg", "flash_attention"))
+
+
+def test_chip_smoke_multidevice_phase_rehearses_on_cpu():
+    """Phase 12 at smoke sizes on 4 CPU ranks (gloo): the expert-parallel
+    MoE equal to ``moe_apply`` without drops, PNA dst-partitioned, context
+    -parallel attention and the split-KV combine, the compressed step bit
+    for bit against the one-process step over 4 shards, MIND's row-sharded
+    logits; every rank on its device, no kernel launched, and no rank left
+    running."""
+    import importlib.util
+    import multiprocessing as mp
+    import time
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", SMOKE)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    t0 = time.time()
+    rec = smoke.multidevice_phase("cpu", full=False)
+    assert time.time() - t0 < 60
+    assert not mp.active_children()
+    assert rec["backend"] == "gloo" and rec["devices"] == ["cpu"] * 4
+    moe = rec["12a_moe"]
+    assert moe["routing_partings"] == 0
+    assert set(moe["no_drop_rel_err"]) >= {"out", "grad router.w",
+                                           "grad wi", "grad x"}
+    assert moe["forward_collectives"]["all_to_all"]["calls"] == 2
+    assert moe["forward_backward_collectives"]["reduce_scatter"]["calls"] > 0
+    assert rec["12b_pna"]["max_abs_err"] < 1e-4
+    assert rec["12c_attention"]["rel_err"]["out"] < smoke.BF16_REL
+    dp = rec["12d_dp_step"]
+    assert dp["params_bitwise"] and dp["ef_bitwise"] and dp["moments_bitwise"]
+    assert rec["12e_mind"]["max_abs_err"] < 1e-5
+    assert set(rec["seconds"]) == {"12a_moe", "12b_pna", "12c_attention",
+                                   "12d_dp_step", "12e_mind"}

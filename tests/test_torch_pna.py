@@ -155,12 +155,14 @@ def test_pna_graph_level_readout():
 
 
 def test_pna_mesh_raises():
+    """The sharded layer runs on a rank mesh (tests/test_torch_multidevice
+    holds it to the reference); any other mesh object is refused."""
     cfg = dataclasses.replace(get_arch("pna").smoke(), mesh=object())
     gb = p_gd.random_graph_batch(torch.Generator().manual_seed(0), 8, 20,
                                  cfg.d_in, device="cpu")
     params = p_pna.init_params(torch.Generator().manual_seed(1), cfg,
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="A11.6"):
+    with pytest.raises(TypeError, match="rank mesh"):
         p_pna.forward(params, gb, cfg)
 
 

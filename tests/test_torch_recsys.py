@@ -192,8 +192,14 @@ def test_logits_pspec_needs_the_multi_device_layer():
              "hist_mask": torch.from_numpy(mask),
              "target": torch.zeros(4, dtype=torch.int32)}
     cfg = dataclasses.replace(cfg, logits_pspec=("data", None))
-    with pytest.raises(NotImplementedError, match="A11.6"):
+    with pytest.raises(TypeError, match="rank mesh"):
         p_mind.train_loss(pp, batch, cfg)
+    from repro_torch.launch.mesh import Mesh
+    mesh = Mesh((1,), ("data",), rank=0, device=torch.device("cpu"))
+    for spec in ((None, "data"), ("data", "data")):
+        with pytest.raises(ValueError, match="by rows only"):
+            p_mind.train_loss(pp, batch, dataclasses.replace(
+                cfg, logits_pspec=spec), mesh)
 
 
 # ----------------------------------------------------------------- registry

@@ -304,18 +304,30 @@ def test_moe_apply(case):
 
 
 def test_mesh_paths_raise():
+    """The XLA SPMD hints (``act_pspec``, ``dispatch_pspec``) still raise,
+    naming A11.6d; ``cp_mesh`` and ``MoEConfig.mesh`` run on a rank mesh
+    (tests/test_torch_multidevice) and refuse any other object;
+    ``prefill`` ignores ``cp_mesh``, as the reference's does."""
     cfg = dataclasses.replace(p_configs.get_arch("starcoder2-3b").smoke(),
                               act_pspec=("data", None, None))
     params = p_tfm.init_params(torch.Generator().manual_seed(0), cfg,
                                device="cpu")
     toks = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="A11.6"):
+    with pytest.raises(NotImplementedError, match="A11.6d"):
         p_tfm.forward(params, toks, cfg)
-    with pytest.raises(NotImplementedError, match="A11.6"):
-        p_tfm.prefill(params, toks, dataclasses.replace(
-            cfg, act_pspec=None, cp_mesh=object()), 8)
+    plain = dataclasses.replace(cfg, act_pspec=None)
+    cp = dataclasses.replace(plain, cp_mesh=object())
+    with pytest.raises(TypeError, match="rank mesh"):
+        p_tfm.forward(params, toks, cp)
+    want, _ = p_tfm.prefill(params, toks, plain, 8)
+    got, _ = p_tfm.prefill(params, toks, cp, 8)
+    assert torch.equal(got, want)
     mc = p_moe.MoEConfig(n_experts=2, top_k=1, d_ff_expert=4, mesh=object())
-    with pytest.raises(NotImplementedError, match="A11.3"):
+    with pytest.raises(TypeError, match="rank mesh"):
+        p_moe.moe_apply({}, torch.zeros((1, 2, 4)), mc)
+    mc = p_moe.MoEConfig(n_experts=2, top_k=1, d_ff_expert=4,
+                         dispatch_pspec=("model", "data", None))
+    with pytest.raises(NotImplementedError, match="A11.6d"):
         p_moe.moe_apply({}, torch.zeros((1, 2, 4)), mc)
 
 
