@@ -113,24 +113,39 @@ Phases:
      4,096, B 2, bf16) equal to ``chunked_attention`` forward and backward,
      and ``combine_partials`` of split-KV decode equal to
      ``decode_attention``; then on a 4 x 1 mesh over the same ranks (d)
-     the 100m preset's compressed data-parallel step, 3 steps, parameters,
+     the 100m preset's compressed data-parallel step, 2 steps, parameters,
      moments, loss and error feedback against the one-process step over 4
      shards, and (e) MIND at full width, its in-batch logits' rows over the
      4 ranks at a batch of 32,768, loss and gradients equal to rank 0's
      single-process run; it prints each sub-phase's seconds, collectives
      and per-rank peak memory.
 
-``python3 chip_smoke.py --only=snb,finbench,sharded,pna,llm,train,molecular,recsys,multidevice``
+ 13. the cells (``launch/steps.py``): the same four ranks on a 2 x 2 mesh
+     run the per-rank programs ``build_cell`` makes for qwen2-moe-a2.7b at
+     full width cut to 2 layers: (a) ``train_4k`` (sequence-parallel
+     boundaries, TP attention with 16 heads over 2, expert parallelism on
+     the sequence slices, vocab-parallel loss, ZeRO gathers) at a global
+     batch of 2 sequences of 4,096 tokens, one fp32 step equal to the
+     single-process twin (loss, gradient norm, every updated parameter and
+     moment block; each rank in turn holds the twin), then a bf16 step
+     timed beside the bound the port's dry run counts for the same cell on
+     the same mesh; (b) ``decode_32k`` at a batch of 4 against the full
+     32,768-position cache (split-KV over the model axis,
+     ``dispatch_pspec``'s expert layer), one fp32 step, timed, equal to
+     the twin (logits, cache blocks).
+
+``python3 chip_smoke.py --only=snb,finbench,sharded,pna,llm,train,molecular,recsys,multidevice,cells``
 runs the named phases alone (after the build; ``pna`` and ``llm`` are
 phase 10's halves; ``train``, ``molecular`` and ``recsys`` phase 11's:
-11a-b, 11c and 11d; ``multidevice`` phase 12) and prints no result line.
+11a-b, 11c and 11d; ``multidevice`` phase 12; ``cells`` phase 13) and
+prints no result line.
 
 Each kernel's launch count is zeroed just before its main path and read
 just after it: phases 3-4, the serve run of 7b and phase 8's path for
 ``block_spmm``, the ends of phases 5 and 6 for the others (comparison
 launches do not count); phase 9, whose hops are all segment hops, must
 launch none, and phases 10 and 11, whose reference modules call no
-kernel, must launch none either; phase 12's ranks check that they
+kernel, must launch none either; phase 12's and 13's ranks check that they
 launched none.  ``block_spmm`` and
 ``flash_attention`` also count launches by route: ``tc`` (tensor cores)
 and ``fp32`` (CUDA cores).  Every failed check raises, so the script exits
@@ -209,14 +224,17 @@ ATTN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2 ** -7, 1e-4)}
 # from 12 to 6 (12 rounds took 197 s of a 538 s smoke on an NVIDIA H100
 # 80GB HBM3 at 700 W), then to 4 once phase 11 joined the smoke (the whole
 # call took 626.6 s of command with 6 rounds on that card): the selector
-# evaluates once, after round 3
+# evaluates once, after round 3 (8 clients in place of 16 took as long:
+# 7a 76.9-77.4 s against 77.9 s on an NVIDIA H100 80GB HBM3 at 700 W)
 SERVE_CLIENTS = 16
 SERVE_ROUNDS = 2
 ONLINE_ROUNDS = 4
 # phases 3-4: each read and write timed alone, as the workload driver's
 # table (benchmarks/workload_driver.py::run_workload): one warm-up, then
-# this many runs, the median kept
-READ_REPEATS = 3
+# this many runs, the median kept; cut from the workload driver's 3 to 2 once
+# phase 13 joined (the whole call took 686.0 s of command on an NVIDIA H100
+# 80GB HBM3 at 700 W with 3)
+READ_REPEATS = 2
 # phase 9: the sharded session, 4 logical shards on one card, and the cut
 # of phase 7a's serve script it serves beside its unsharded twin (with the
 # scheduler's window pinned, so both make the same decisions); on SNB cut
@@ -299,13 +317,36 @@ MD_MOE_TOKENS = (2, 4096)
 MD_CP = (2, 56, 8, 4096, 128)        # B, Hq, Hkv, S, Dh
 MD_DECODE_LEN = (3001, 4096)
 MD_DP_BATCH = (8, 128)
-MD_STEPS = 3
+MD_STEPS = 2                         # 12d's steps, cut from 3 for phase 13
 # bf16 results against a single-process twin: relative Frobenius error
 # (a wrong block order or a lost term is of order 1; bf16 rounding of two
 # differently shaped GEMMs a few 2^-9); a token whose top-k experts differ
 # between the two runs is taken only at a near tie of its router logits
 BF16_REL = 2.0 ** -5
 MOE_NEAR_TIE = 0.05
+# phase 13: the cells of launch/steps.py, each a per-rank program, on four
+# ranks of the one card (gloo, a 2 data x 2 model mesh): qwen2-moe-a2.7b
+# at full width cut to 2 layers; train_4k's global batch of 256 sequences
+# of 4,096 tokens cut to 2 (one a data rank; the fp32 twin's logits alone
+# take 5 GB a sequence), decode_32k's 128 sequences cut to 4 against the
+# full 32,768-position cache
+CELL_ARCH = "qwen2-moe-a2.7b"
+CELL_MESH = (2, 2)
+CELL_LAYERS = 2
+CELL_TRAIN = (2, 4096)               # global batch, sequence
+# the fp32 parity step's batch: its capacity lets every expert take every
+# token (nothing drops), so its dense expert buffers are E/K = 15 times the
+# routed work (at 4,096 tokens a twin step's buffers hold 3.4 PFLOP of fp32
+# GEMMs, about 50 s at the 67 TFLOP/s peak), so parity runs 2 sequences of
+# 256 tokens, the timed bf16 step the cell's 2 x 4,096 at its capacity
+CELL_PARITY = (2, 256)
+CELL_DECODE = (4, 32768)
+CELL_TIMED = 2                       # bf16 steps timed, the first cold
+CELL_SEED = 5
+CELL_TIMEOUT = 420.0
+# fp32 parity against the single-process twin, as phase 11's: each leaf
+# within CELL_TOL of the twin's largest magnitude in that leaf
+CELL_TOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -3111,7 +3152,378 @@ def multidevice_phase(device: str = "cuda:0", full: bool = True) -> dict:
     return rec
 
 
+# ------------------------------------------------------------- phase 13
+
+def cell_sizes(full: bool = True) -> dict:
+    """Phase 13's config and shapes: the card's, or smoke sizes for the
+    CPU."""
+    from repro_torch.configs import get_arch
+    spec = get_arch(CELL_ARCH)
+    if full:
+        return {"base": spec.full(), "layers": CELL_LAYERS,
+                "train": CELL_TRAIN, "parity": CELL_PARITY,
+                "decode": CELL_DECODE, "timed": True}
+    return {"base": spec.smoke(), "layers": 2, "train": (4, 16),
+            "parity": (4, 16), "decode": (4, 32), "timed": False}
+
+
+def phase13_cell(kind: str, mesh, sz: dict, dtype, parity: bool):
+    """The cell ``build_cell`` makes for ``kind`` with the phase's
+    override.  ``parity``: a train cell drops nothing and has no aux loss.
+    Its capacity factor is the allocated experts over top-k, so every
+    expert has a slot for every token on each model peer and in the twin:
+    an untrained model's router sends most tokens to a few experts, so a
+    smaller capacity drops, and the peers (each by its own capacity, the
+    reference's sharded layer) and the twin drop different tokens.  The
+    expert-parallel layer's aux loss is the mean of its peers', not the
+    twin's."""
+    from repro_torch.configs.shapes import LMShape
+    from repro_torch.launch.steps import lm_cell
+    cfg = dataclasses.replace(sz["base"], n_layers=sz["layers"], dtype=dtype)
+    if parity and kind == "train":
+        mp = mesh.shape["model"]
+        e_alloc = -(-cfg.moe.n_experts // mp) * mp
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=e_alloc / cfg.moe.top_k + 1e-3,
+            router_aux_weight=0.0))
+    B, S = sz["parity" if parity and kind == "train" else kind]
+    shape_name = "train_4k" if kind == "train" else "decode_32k"
+    return lm_cell(CELL_ARCH, LMShape(kind, S, B), shape_name, mesh, cfg)
+
+
+def _in_turns(mesh, make):
+    """``make()`` on one rank at a time (each draws whole weights), every
+    rank's cached blocks released first."""
+    import torch.distributed as dist
+    gc.collect()
+    if mesh.device.type == "cuda":
+        torch.cuda.empty_cache()
+    dist.barrier()
+    out = None
+    for turn in range(mesh.size):
+        if turn == mesh.rank:
+            out = make()
+            if mesh.device.type == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def _leaf_errs(got, want, what: str) -> dict:
+    """Each leaf's largest difference over the twin's largest magnitude
+    there (``scaled``) and its relative Frobenius error (``rel``);
+    integer leaves must be equal."""
+    from repro_torch.launch.steps import tree_paths
+    want = dict(tree_paths(want))
+    out = {}
+    for path, g in tree_paths(got):
+        w = want[path]
+        g = g.to(w.device)
+        check(g.shape == w.shape, f"{what} {path}: shape {tuple(g.shape)} "
+                                  f"!= {tuple(w.shape)}")
+        if not g.is_floating_point():
+            check(torch.equal(g, w), f"{what} {path}: differs")
+            continue
+        scale = float(w.abs().max()) if w.numel() else 0.0
+        err = float((g.double() - w.double()).abs().max()) / max(scale, 1e-30)
+        out[path] = {"scaled": err, "rel": rel_err(g, w)}
+    return out
+
+
+def _group_worst(errs: dict, key: str) -> dict:
+    """The worst ``key`` error of each group of leaves (parameters, the
+    two moments, each metric or output)."""
+    worst = {}
+    for path, e in errs.items():
+        group = ("params" if ".params" in path else "m" if ".m" in path
+                 else "v" if ".v" in path else path.split("'")[-2]
+                 if "'" in path else path)
+        worst[group] = max(worst.get(group, 0.0), e[key])
+    return worst
+
+
+def _first_routings(log, L: int) -> list:
+    """The first ``L`` routings of a run (its forward's layers, before
+    remat's recomputes): sorted top-k sets and fp32 logits."""
+    return [(torch.sort(idx, -1).values, logits) for idx, logits in log[:L]]
+
+
+def _partings(mine, twin, S: int, K: int) -> tuple:
+    """Tokens whose top-k experts differ between the sharded run's routing
+    (every token, gathered) and the twin's, layer by layer, and the twin's
+    gap between its K-th and (K+1)-th logits at each parting no earlier
+    one explains.  A parting changes its token's output, and causal
+    attention carries that to every later position of its sequence in the
+    next layer: a parting at (b, s) is explained by one at (b, s' <= s)
+    in an earlier layer."""
+    first, parted, gaps = {}, 0, []
+    for sets, (t_sets, t_logits) in zip(mine, twin):
+        diff = torch.nonzero((sets != t_sets).any(-1))[:, 0]
+        top = torch.topk(t_logits[diff], K + 1, -1).values
+        gap = (top[:, -2] - top[:, -1]).tolist()
+        parted += int(diff.numel())
+        new = {}
+        for tok, g in zip(diff.tolist(), gap):
+            b, pos = divmod(tok, S)
+            if pos >= first.get(b, S):
+                continue
+            gaps.append(g)
+            new[b] = min(new.get(b, S), pos)
+        for b, pos in new.items():
+            first[b] = min(first.get(b, S), pos)
+    return parted, gaps
+
+
+def _against_twin(mesh, cell, got, seed: int, dev, what: str,
+                  routing=None) -> dict:
+    """Each rank in turn runs the single-process twin on the whole inputs
+    and holds its blocks of the result to ``got``.  ``routing``: the
+    sharded MoE step's routing of every token ([B * S, K] sets a layer,
+    and S); a token routed apart from the twin must sit at a near tie of
+    the twin's logits, or downstream of one (:func:`_partings`), and where
+    any token parted each leaf is held to BF16_REL relative error instead
+    of CELL_TOL of its scale."""
+    from repro_torch.launch.sharding import local_block
+    from repro_torch.launch.steps import global_inputs, map_tree
+    from repro_torch.models import moe
+
+    got = map_tree(lambda t: t.detach().cpu(), got)   # room for the twin
+
+    def one():
+        moe.routing_log = [] if routing is not None else None
+        out = cell.twin(*global_inputs(cell, mesh, seed, dev))
+        twin_log, moe.routing_log = moe.routing_log, None
+        want = map_tree(lambda t, sp: local_block(t, sp, mesh), out,
+                        cell.out_specs)
+        errs = _leaf_errs(got, want, f"{what} rank {mesh.rank}")
+        del out, want
+        parted, gaps = 0, []
+        if routing is not None:
+            mine, S = routing
+            parted, gaps = _partings(mine, _first_routings(twin_log,
+                                                           len(mine)),
+                                     S, cell.cfg.moe.top_k)
+        return errs, parted, gaps
+    errs, total, gaps = _in_turns(mesh, one)
+    check(all(g < MOE_NEAR_TIE for g in gaps),
+          f"{what} rank {mesh.rank}: tokens routed apart from the twin away "
+          f"from a near tie: gaps {gaps}")
+    key, tol = ("rel", BF16_REL) if total else ("scaled", CELL_TOL)
+    for path, e in errs.items():
+        check(e[key] <= tol, f"{what} rank {mesh.rank} {path}: {key} error "
+                             f"{e[key]:.3e} above {tol:.3e} ({total} "
+                             f"tokens routed apart)")
+    return {"routing_partings": total, "near_tie_gaps": gaps,
+            "held_to": f"{key} <= {tol:.3e}",
+            "scaled": _group_worst(errs, "scaled"),
+            "rel": _group_worst(errs, "rel")}
+
+
+def _timed_steps(mesh, step, n: int, dev) -> list:
+    """Seconds of ``n`` calls of ``step()``, each between barriers with
+    the card synced: the slowest rank's time (the first call holds the
+    first use of its GEMMs)."""
+    import torch.distributed as dist
+    ts = []
+    for _ in range(n):
+        sync(dev)
+        dist.barrier()
+        t0 = time.perf_counter()
+        step()
+        sync(dev)
+        dist.barrier()
+        ts.append(time.perf_counter() - t0)
+    return ts
+
+
+def cell_train(mesh, sz, dev) -> dict:
+    """13a: one fp32 step of the train cell against the twin (loss,
+    gradient norm, every updated parameter and moment block), then the
+    bf16 cell's step timed."""
+    from repro_torch.launch.sharding import gather_full
+    from repro_torch.launch.steps import rank_inputs
+    from repro_torch.models import moe
+    cell = phase13_cell("train", mesh, sz, torch.float32, parity=True)
+    B, S = sz["parity"]
+    c = cell.cfg
+    rec = {"arch": CELL_ARCH, "layers": c.n_layers, "d_model": c.d_model,
+           "experts": c.moe.n_experts, "experts_alloc": c.moe.e_alloc,
+           "top_k": c.moe.top_k, "vocab": c.vocab, "parity_batch": [B, S],
+           "timed_batch": list(sz["train"]),
+           "parity_capacity_factor": c.moe.capacity_factor,
+           "act_pspec": list(c.act_pspec),
+           "cp": c.cp_mesh is not None, "seq_sharded": c.moe.seq_sharded}
+    args = _in_turns(mesh, lambda: rank_inputs(cell, mesh, CELL_SEED, dev))
+    mesh.reset_counts()
+    moe.routing_log = []
+    t0 = time.perf_counter()
+    state, metrics = cell.fn(*args)
+    sync(dev)
+    rec["fp32_step_s"] = time.perf_counter() - t0
+    mine, moe.routing_log = _first_routings(moe.routing_log,
+                                            c.n_layers), None
+    # every token's experts, [B, S, K] from each rank's [B/dp, S/mp, K]
+    Bl, Sl = B // mesh.shape["data"], S // mesh.shape["model"]
+    everyone = [gather_full(sets.reshape(Bl, Sl, -1), ("data", "model",
+                                                        None), mesh
+                            ).reshape(B * S, -1) for sets, _ in mine]
+    rec["fp32_collectives"] = {k: dict(v) for k, v in mesh.counts.items()}
+    _on(mesh, metrics["loss"], metrics["gnorm"])
+    rec["loss"] = float(metrics["loss"])
+    rec["gnorm"] = float(metrics["gnorm"])
+    del args
+    t0 = time.perf_counter()
+    out, state, metrics = (state, metrics), None, None
+    rec["parity"] = _against_twin(mesh, cell, out, CELL_SEED, dev,
+                                  "13a fp32 step", (everyone, S))
+    rec["twin_turns_s"] = time.perf_counter() - t0
+    del out
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    cell16 = phase13_cell("train", mesh, sz, torch.bfloat16, parity=False)
+    args = _in_turns(mesh, lambda: rank_inputs(cell16, mesh, CELL_SEED, dev))
+    box = {"state": args[0]}
+
+    def step():
+        box["state"], box["metrics"] = cell16.fn(box["state"], args[1])
+    n = CELL_TIMED if sz["timed"] else 1
+    mesh.reset_counts()
+    ts = _timed_steps(mesh, step, n, dev)
+    loss = float(box["metrics"]["loss"])
+    check(np.isfinite(loss), f"13a bf16 loss {loss}")
+    rec["bf16_step_ms"] = [t * 1e3 for t in ts]
+    rec["bf16_step_ms_last"] = ts[-1] * 1e3
+    rec["bf16_loss"] = loss
+    rec["bf16_collectives_per_step"] = {
+        k: {f: v[f] // n for f in v} for k, v in mesh.counts.items()}
+    return rec
+
+
+def cell_decode(mesh, sz, dev) -> dict:
+    """13b: one fp32 decode step of the decode cell, timed (its first
+    call), against the twin (logits, the cache blocks)."""
+    from repro_torch.launch.steps import rank_inputs
+    cell = phase13_cell("decode", mesh, sz, torch.float32, parity=False)
+    B, S = sz["decode"]
+    rec = {"global_batch": B, "cache_len": S,
+           "dispatch_pspec": list(cell.cfg.moe.dispatch_pspec),
+           "note": cell.note}
+    args = _in_turns(mesh, lambda: rank_inputs(cell, mesh, CELL_SEED, dev))
+    mesh.reset_counts()
+    box = {}
+
+    def step():
+        box["out"] = cell.fn(*args)
+    rec["step_ms"] = [t * 1e3 for t in _timed_steps(mesh, step, 1, dev)]
+    logits, cache = box.pop("out")
+    rec["collectives"] = {k: dict(v) for k, v in mesh.counts.items()}
+    _on(mesh, logits, cache["k"])
+    out, logits, cache = (logits, cache), None, None
+    rec["parity"] = _against_twin(mesh, cell, out, CELL_SEED, dev,
+                                  "13b decode step")
+    return rec
+
+
+def cells_ranks(rank, world_size, init_method, device, full):
+    """Phase 13's rank program on a 2 x 2 mesh; every check raises; each
+    rank returns its record."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_rank_mesh
+    sz = cell_sizes(full)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    mesh = make_rank_mesh(world_size, rank, init_method, CELL_MESH,
+                          backend="gloo", devices=dev)
+    out = {"rank": rank, "device": str(mesh.device), "seconds": {},
+           "peak_bytes": {}}
+    for name, fn in (("13a_train", cell_train), ("13b_decode", cell_decode)):
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        dist.barrier()
+        t0 = time.perf_counter()
+        out[name] = fn(mesh, sz, dev)
+        sync(dev)
+        dist.barrier()
+        out["seconds"][name] = time.perf_counter() - t0
+        if dev.type == "cuda":
+            out["peak_bytes"][name] = torch.cuda.max_memory_allocated(dev)
+        gc.collect()
+    out["kernel_launches"] = {fn: getattr(ops, fn).launches for fn in
+                              ("block_spmm", "segment_multi_agg",
+                               "flash_attention")}
+    check(not any(out["kernel_launches"].values()),
+          f"rank {rank}: phase 13 launched a kernel")
+    return out
+
+
+def cell_bound(full: bool = True) -> dict:
+    """The dry run's count of 13a's bf16 cell on a meta 2 x 2 mesh (rank
+    0): the step's bound at the H100's data-sheet peaks."""
+    from repro_torch.launch.mesh import make_meta_mesh
+    from repro_torch.roofline.analysis import analyze_cell
+    sz = cell_sizes(full)
+    mesh = make_meta_mesh(CELL_MESH, ("data", "model"), rank=0)
+    cell = phase13_cell("train", mesh, sz, torch.bfloat16, parity=False)
+    rep = analyze_cell(cell, mesh, arch=CELL_ARCH, shape="train_4k")
+    return {"bound_ms": rep.step_time_bound_s * 1e3,
+            "compute_ms": rep.compute_s * 1e3,
+            "memory_ms": rep.memory_s * 1e3,
+            "collective_ms": rep.collective_s * 1e3,
+            "dominant": rep.dominant,
+            "flops_per_rank": rep.hlo_flops / mesh.size,
+            "bytes_per_rank": rep.hlo_bytes / mesh.size,
+            "peak_bytes_per_rank": rep.peak_memory_bytes,
+            "model_flops": rep.model_flops}
+
+
+def cells_phase(device: str = "cuda:0", full: bool = True) -> dict:
+    """Phase 13: four ranks on ``device`` (one card, or the CPU), gloo
+    named explicitly; rank 0's records, every rank's seconds and peaks,
+    and the dry run's bound of the timed step."""
+    from repro_torch.launch.spawn import spawn
+    ranks = spawn(cells_ranks, MD_RANKS, device, full, timeout=CELL_TIMEOUT)
+    rec = {k: v for k, v in ranks[0].items() if k.startswith("13")}
+    rec["backend"] = "gloo"
+    rec["devices"] = [r["device"] for r in ranks]
+    rec["seconds"] = ranks[0]["seconds"]
+    rec["peak_bytes_per_rank"] = [r["peak_bytes"] for r in ranks]
+    for name in ("13a_train", "13b_decode"):
+        rec[name]["parity_by_rank"] = [r[name]["parity"] for r in ranks]
+    rec["13a_train"]["dryrun_bound"] = cell_bound(full)
+    return rec
+
+
 # ---------------------------------------------------------------------------
+
+def run_cells(seconds: dict) -> dict:
+    """Phase 13 on the card, after the parent's cached memory is freed."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec = cells_phase()
+    seconds["cells"] = time.perf_counter() - t0
+    for name in ("13a_train", "13b_decode"):
+        log(f"phase {name}: " + json.dumps(rec[name]))
+    a = rec["13a_train"]
+    log(f"phase 13a: bf16 step {a['bf16_step_ms_last']:.1f} ms (the last "
+        f"of {len(a['bf16_step_ms'])}) beside the dry run's bound "
+        f"{a['dryrun_bound']['bound_ms']:.3f} ms "
+        f"({a['dryrun_bound']['dominant']}) for the same cell on the same "
+        f"2 x 2 mesh")
+    log("phase 13: 4 ranks, backend gloo named explicitly, devices "
+        f"{rec['devices']}; seconds {json.dumps(rec['seconds'])}; "
+        f"peak bytes per rank {json.dumps(rec['peak_bytes_per_rank'])}; "
+        f"nvidia-smi: {nvidia_smi()}.  These are host-staged gloo times of "
+        "four ranks on one card, not NVLink")
+    return rec
+
 
 def run_multidevice(seconds: dict) -> dict:
     """Phase 12 on the card, after the parent's cached memory is freed."""
@@ -3165,8 +3577,8 @@ def run_sharded(ops, seconds: dict) -> dict:
 
 def probe(only: list, seconds: dict) -> int:
     """``--only=snb,finbench,sharded,pna,llm,train,molecular,recsys,
-    multidevice``: the named phases alone, for a short call on the card;
-    prints no result line."""
+    multidevice,cells``: the named phases alone, for a short call on the
+    card; prints no result line."""
     from repro_torch.kernels import ops
     if "snb" in only:
         t0 = time.perf_counter()
@@ -3184,6 +3596,8 @@ def probe(only: list, seconds: dict) -> int:
         run_training(ops, only, seconds)
     if "multidevice" in only:
         run_multidevice(seconds)
+    if "cells" in only:
+        run_cells(seconds)
     log("seconds " + json.dumps(seconds))
     return 0
 
@@ -3318,6 +3732,7 @@ def main() -> int:
     side = run_side_stacks(ops, ("pna", "llm"), seconds, agg.pop("pna_x10"))
     run_training(ops, ("train", "molecular", "recsys"), seconds)
     run_multidevice(seconds)
+    run_cells(seconds)
     log("seconds " + json.dumps(seconds))
     by_phase = {"snb": snb_launches, "finbench": launches - snb_launches,
                 "serve": fin_serve["launches"], "gnn": gnn["launches"]}

@@ -14,16 +14,25 @@ partition), edges are pre-partitioned by destination owner, and each rank
 all-gathers node features once a layer, gathers sources locally and
 segment-reduces into its own node range only: no cross-rank scatter and
 no reduction collective.  Its backward is the gather's reduce-scatter.
+
+:class:`RowPartition` is the pair the molecular models (DimeNet, NequIP,
+MACE) run on when nodes, edges and triplets are all split in contiguous
+blocks over the mesh axes (the reference's cells shard them so and leave
+the rest to SPMD): a row read all-gathers the rows over the axes and
+indexes them; a scatter sums the local rows into a full buffer and
+reduce-scatters it to the rank's block; a pool (per-graph sums) is a
+``psum``.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Callable, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.launch import collectives as C
-from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.mesh import Mesh, axis_product
 
 
 def flat_axis_index(axes: Sequence[str], mesh: Mesh) -> int:
@@ -53,6 +62,38 @@ def dst_partitioned_aggregate(h_l: torch.Tensor, src_l: torch.Tensor,
     h_full = all_gather_axes(h_l, axes, mesh, axis=0)          # [N, D]
     offset = flat_axis_index(axes, mesh) * n_loc
     return msg_and_reduce(h_full, src_l, dst_l - offset, mask_l, n_loc)
+
+
+@dataclass(frozen=True)
+class RowPartition:
+    """Row-split node- and edge-indexed tensors over ``axes`` of a rank
+    mesh: this rank holds rows [i * n, (i + 1) * n) of each, i its flat
+    index over ``axes``; indices into them are global."""
+    mesh: Mesh
+    axes: Tuple[str, ...]
+
+    def gather(self, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """``full[idx]`` from this rank's rows ``x`` of ``full``."""
+        full = all_gather_axes(x, self.axes, self.mesh, axis=0)
+        out = torch.index_select(full, 0, idx.reshape(-1).long())
+        return out.reshape(*idx.shape, *x.shape[1:])
+
+    def scatter(self, data: torch.Tensor, ids: torch.Tensor, n_local: int
+                ) -> torch.Tensor:
+        """This rank's rows of the segment sum of every rank's ``data``
+        into ``n_local`` rows a rank."""
+        n = n_local * axis_product(self.mesh, self.axes)
+        full = data.new_zeros((n,) + tuple(data.shape[1:])).index_add(
+            0, ids.long(), data)
+        return C.psum_scatter(full, self.axes, self.mesh, axis=0)
+
+    def pool(self, data: torch.Tensor, ids: torch.Tensor, n: int
+             ) -> torch.Tensor:
+        """The segment sum into ``n`` segments over every rank's rows
+        (equal on every rank)."""
+        out = data.new_zeros((n,) + tuple(data.shape[1:])).index_add(
+            0, ids.long(), data)
+        return C.psum(out, self.axes, self.mesh)
 
 
 def shard_owner(label_id: int, n_shards: int) -> int:

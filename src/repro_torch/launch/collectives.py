@@ -21,8 +21,14 @@ exactly, whatever dtypes the backend takes (gloo refuses int16, for one).  Under
 off the CPU is copied to host memory for the collective and its result
 copied back to the tensor's device (gloo's CUDA support differs op by op
 between builds; one explicit path serves them all).  Every call counts its
-calls and bytes in ``mesh.counts``; copies through host memory count under
-``"staged"``.
+calls, the bytes handed to it and its output's bytes in ``mesh.counts``;
+copies through host memory count under ``"staged"``.  On a meta mesh
+(``launch.mesh.make_meta_mesh``) every collective takes ``meta`` tensors
+(anything else raises), exchanges nothing and returns a ``meta`` tensor of
+its output's shape, counted as a real mesh counts it.
+
+``psum_scatter`` is the tiled reduce-scatter (sum over the peers, each
+keeping its block along ``axis``), with an all-gather as its transpose.
 """
 from __future__ import annotations
 
@@ -48,6 +54,16 @@ def axis_size(axis: str, mesh: Mesh) -> int:
     return mesh.shape[axis]
 
 
+def _check_meta(x: torch.Tensor, mesh: Mesh) -> bool:
+    """True on a meta mesh (and ``x`` is then a meta tensor)."""
+    if not mesh.is_meta:
+        return False
+    if x.device.type != "meta":
+        raise TypeError(f"a meta mesh's collectives take meta tensors, got "
+                        f"one on {x.device}")
+    return True
+
+
 def _to_host(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     if mesh.backend == "gloo" and x.device.type != "cpu":
         mesh.count("staged", x.nbytes)
@@ -63,24 +79,26 @@ def _gather_list(x: torch.Tensor, axis: str, mesh: Mesh
                  ) -> List[torch.Tensor]:
     """Every peer's ``x`` along ``axis``, in peer order."""
     import torch.distributed as dist
-    mesh.count("all_gather", x.nbytes)
     n = mesh.shape[axis]
-    if n == 1:
-        return [x]
+    mesh.count("all_gather", x.nbytes, n * x.nbytes, axis)
+    if _check_meta(x, mesh) or n == 1:
+        return [x] * n
     raw = _to_host(_bytes(x), mesh)
     outs = [torch.empty_like(raw) for _ in range(n)]
     dist.all_gather(outs, raw, group=mesh.groups[axis])
     return [o.to(x.device).view(x.dtype).reshape(x.shape) for o in outs]
 
 
-def _exchange(chunks: List[torch.Tensor], axis: str, mesh: Mesh, name: str
-              ) -> List[torch.Tensor]:
+def _exchange(chunks: List[torch.Tensor], axis: str, mesh: Mesh, name: str,
+              out_bytes: int) -> List[torch.Tensor]:
     """All-to-all: ``chunks[j]`` goes to peer ``j``; returns what each
     peer sent here, in peer order.  The chunks share a shape."""
     import torch.distributed as dist
     stacked = torch.stack(chunks)
-    mesh.count(name, stacked.nbytes)
+    mesh.count(name, stacked.nbytes, out_bytes, axis)
     n = mesh.shape[axis]
+    if _check_meta(stacked, mesh):
+        return list(stacked.unbind(0))
     if n == 1:
         return [stacked[0]]
     raw = _to_host(_bytes(stacked), mesh)
@@ -93,8 +111,8 @@ def _exchange(chunks: List[torch.Tensor], axis: str, mesh: Mesh, name: str
 def _reduce(x: torch.Tensor, axis: str, mesh: Mesh, op: str, name: str
             ) -> torch.Tensor:
     import torch.distributed as dist
-    mesh.count(name, x.nbytes)
-    if mesh.shape[axis] == 1:
+    mesh.count(name, x.nbytes, x.nbytes, axis)
+    if _check_meta(x, mesh) or mesh.shape[axis] == 1:
         return x.clone()
     buf = _to_host(x.contiguous(), mesh)
     if buf.device == x.device:          # not staged: reduce into a copy
@@ -112,16 +130,38 @@ class _AllGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        n = ctx.mesh.shape[ctx.axis]
-        parts = _exchange(list(g.contiguous().chunk(n, ctx.dim)), ctx.axis,
-                          ctx.mesh, "reduce_scatter")
-        if g.dtype in (torch.float16, torch.bfloat16):
-            total = sum(p.to(torch.float32) for p in parts).to(g.dtype)
-        else:
-            total = parts[0]
-            for p in parts[1:]:
-                total = total + p
-        return total, None, None, None
+        return _reduce_scatter(g, ctx.axis, ctx.mesh, ctx.dim), None, None, None
+
+
+def _reduce_scatter(x: torch.Tensor, axis: str, mesh: Mesh, dim: int
+                    ) -> torch.Tensor:
+    """Sum over the peers along ``axis``, keeping this peer's block of dim
+    ``dim`` (an all-to-all of the chunks, summed; bf16 and fp16 summed in
+    fp32)."""
+    n = mesh.shape[axis]
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce-scatter over {axis!r} ({n} peers) cannot "
+                         f"split dim {dim} of {tuple(x.shape)}")
+    parts = _exchange(list(x.contiguous().chunk(n, dim)), axis, mesh,
+                      "reduce_scatter", x.nbytes // n)
+    if x.dtype in (torch.float16, torch.bfloat16):
+        return sum(p.to(torch.float32) for p in parts).to(x.dtype)
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    return total
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh, dim):
+        ctx.axis, ctx.mesh, ctx.dim = axis, mesh, dim
+        return _reduce_scatter(x, axis, mesh, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (torch.cat(_gather_list(g.contiguous(), ctx.axis, ctx.mesh),
+                          dim=ctx.dim), None, None, None)
 
 
 class _AllToAll(torch.autograd.Function):
@@ -143,7 +183,7 @@ def _all_to_all(x, axis, mesh, split_axis, concat_axis):
         raise ValueError(f"all_to_all over {axis!r} ({n} peers) cannot split "
                          f"dim {split_axis} of {tuple(x.shape)}")
     parts = _exchange([c.contiguous() for c in x.chunk(n, split_axis)],
-                      axis, mesh, "all_to_all")
+                      axis, mesh, "all_to_all", x.nbytes)
     return torch.cat(parts, dim=concat_axis)
 
 
@@ -163,6 +203,16 @@ def all_gather(x: torch.Tensor, axes: Axes, mesh: Mesh, axis: int = 0
     """Tiled all-gather along dim ``axis`` (differentiable)."""
     for a in reversed(_axes(axes)):
         x = _AllGather.apply(x, a, mesh, axis)
+    return x
+
+
+def psum_scatter(x: torch.Tensor, axes: Axes, mesh: Mesh, axis: int = 0
+                 ) -> torch.Tensor:
+    """Tiled reduce-scatter along dim ``axis`` over ``axes`` (the inverse
+    layout of :func:`all_gather` over the same axes; differentiable, the
+    backward an all-gather)."""
+    for a in _axes(axes):
+        x = _ReduceScatter.apply(x, a, mesh, axis)
     return x
 
 

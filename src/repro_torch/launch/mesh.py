@@ -32,8 +32,13 @@ class Mesh:
     (as a jax mesh's ``shape``).  A rank mesh also knows its ``rank``, its
     ``device``, its ``backend`` and, for every axis, the group of the ranks
     that differ from it along that axis only (``groups``); ``counts``
-    holds, for every collective, its calls and the bytes this rank handed
-    to it (``"staged"``: bytes copied through host memory for gloo)."""
+    holds, for every collective, its calls, the bytes this rank handed to
+    it (``bytes``; ``"staged"``: bytes copied through host memory for
+    gloo) and the bytes of its output on this rank (``out_bytes``, what
+    the reference's roofline sums over the collectives of its HLO);
+    ``axis_out_bytes`` the output bytes by the axis they ran over.  A
+    meta rank mesh (:func:`make_meta_mesh`, ``backend="meta"``) has no
+    process group: its collectives take ``meta`` tensors and only count."""
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
                  rank: Optional[int] = None,
@@ -49,6 +54,7 @@ class Mesh:
         self.rank, self.device, self.backend = rank, device, backend
         self.groups: Dict[str, object] = {}
         self.counts: Dict[str, Dict[str, int]] = {}
+        self.axis_out_bytes: Dict[str, int] = {}
 
     @property
     def has_ranks(self) -> bool:
@@ -59,13 +65,24 @@ class Mesh:
         idx = np.unravel_index(self.rank, tuple(self.shape.values()))
         return {a: int(i) for a, i in zip(self.axis_names, idx)}
 
-    def count(self, name: str, nbytes: int) -> None:
-        rec = self.counts.setdefault(name, {"calls": 0, "bytes": 0})
+    @property
+    def is_meta(self) -> bool:
+        return self.backend == "meta"
+
+    def count(self, name: str, nbytes: int, out_bytes: int = 0,
+              axis: Optional[str] = None) -> None:
+        rec = self.counts.setdefault(name, {"calls": 0, "bytes": 0,
+                                            "out_bytes": 0})
         rec["calls"] += 1
         rec["bytes"] += int(nbytes)
+        rec["out_bytes"] += int(out_bytes)
+        if axis is not None:
+            self.axis_out_bytes[axis] = (self.axis_out_bytes.get(axis, 0)
+                                         + int(out_bytes))
 
     def reset_counts(self) -> None:
         self.counts = {}
+        self.axis_out_bytes = {}
 
     def __repr__(self) -> str:
         where = "" if self.rank is None else \
@@ -156,6 +173,19 @@ def make_rank_mesh(world_size: int, rank: int, init_method: str,
             group = dist.new_group([int(r) for r in ranks], backend=backend)
             if rank in ranks:
                 mesh.groups[name] = group
+    return mesh
+
+
+def make_meta_mesh(shape: Sequence[int],
+                   axis_names: Sequence[str] = ("data", "model"),
+                   rank: int = 0) -> Mesh:
+    """A rank mesh without processes, for counting: rank ``rank`` of a
+    mesh of ``shape`` on the ``meta`` device.  Its collectives take
+    ``meta`` tensors, return ``meta`` tensors of their outputs' shapes and
+    count calls and bytes as a real mesh's do."""
+    mesh = Mesh(shape, axis_names, rank, torch.device("meta"), "meta")
+    if not 0 <= rank < mesh.size:
+        raise ValueError(f"rank {rank} is outside a mesh of {mesh.size}")
     return mesh
 
 

@@ -21,13 +21,17 @@ from repro_torch.utils.device import DeviceLike
 Params = Dict[str, Any]
 
 
-def randn(gen: torch.Generator, shape, dtype: torch.dtype,
+def randn(gen: Optional[torch.Generator], shape, dtype: torch.dtype,
           device: DeviceLike = None) -> torch.Tensor:
     """Standard normal draws in ``dtype`` on ``gen``'s device, put on
-    ``device``."""
+    ``device``; on the ``meta`` device, a meta tensor of the shape (no
+    draw, and ``gen`` may be None): the shapes of a parameter tree."""
+    dev = resolve_device(device)
+    if dev.type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device=dev)
     x = torch.randn(tuple(shape), generator=gen, dtype=dtype,
                     device=gen.device)
-    return x.to(resolve_device(device))
+    return x.to(dev)
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,

@@ -5,8 +5,11 @@ Messages live on *edges*; each interaction block aggregates over the
 triplet list (k -> j -> i) with a spherical-Bessel × Legendre angular basis
 and a bilinear contraction (n_bilinear low-rank).  The triplet list is the
 materialized 2-hop view produced by ``graphdata.build_triplets``.  The
-reference's ``jax.ops.segment_sum`` is ``graphops.segment.segment_sum``
-(``index_add`` into zeros of the segment count).
+reference's ``jax.ops.segment_sum`` is ``graphdata.scatter``
+(``index_add`` into zeros of the segment count).  Node- and edge-indexed
+reads and sums go through ``graphdata.rows`` / ``scatter`` / ``pool``, so
+a batch split by rows over a rank mesh (``GraphBatch.partition``) runs
+the same code on a rank's blocks.
 """
 from __future__ import annotations
 
@@ -16,11 +19,10 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from repro_torch.graphops.segment import segment_sum
 from repro_torch.models.common import (
     Params, dense, dense_init, gather_rows, mlp, mlp_init, randn,
 )
-from repro_torch.models.gnn.graphdata import GraphBatch
+from repro_torch.models.gnn.graphdata import GraphBatch, pool, rows, scatter
 from repro_torch.models.gnn.radial import (
     bessel_rbf, poly_envelope, safe_norm, spherical_basis,
 )
@@ -81,7 +83,7 @@ def forward(params: Params, gb: GraphBatch, cfg: DimeNetConfig,
     t_in, t_out, t_mask = triplets
     src, dst = gb.edge_src, gb.edge_dst
     pos = gb.positions.to(cfg.dtype)
-    d_vec = gather_rows(pos, dst) - gather_rows(pos, src)
+    d_vec = rows(gb, pos, dst) - rows(gb, pos, src)
     r = safe_norm(d_vec)
     rbf = bessel_rbf(r, cfg.n_radial, cfg.cutoff)
     rbf = rbf * poly_envelope(r, cfg.cutoff)[:, None]
@@ -92,7 +94,7 @@ def forward(params: Params, gb: GraphBatch, cfg: DimeNetConfig,
         hnode = gather_rows(params["embed"]["w"], gb.node_feat)
     e_rbf = dense(params["rbf_emb"], rbf)
     m = mlp(params["msg_init"],
-            torch.cat([gather_rows(hnode, src), gather_rows(hnode, dst),
+            torch.cat([rows(gb, hnode, src), rows(gb, hnode, dst),
                        e_rbf], dim=-1),
             act=F.silu)                                         # [E, h]
     m = m * gb.edge_mask[:, None]
@@ -100,8 +102,8 @@ def forward(params: Params, gb: GraphBatch, cfg: DimeNetConfig,
     # triplet geometry: angle at j between (k - j) and (i - j), the
     # reference's pos[src[t]] - pos[dst[t]] and pos[dst[t]] - pos[src[t]]
     # read off the edge vectors (equal bit for bit)
-    v_in = -gather_rows(d_vec, t_in)           # k - j  (edge t_in is k->j)
-    v_out = gather_rows(d_vec, t_out)          # i - j  (edge t_out is j->i)
+    v_in = -rows(gb, d_vec, t_in)           # k - j  (edge t_in is k->j)
+    v_out = rows(gb, d_vec, t_out)          # i - j  (edge t_out is j->i)
     cos = torch.sum(v_in * v_out, -1) / torch.clamp(
         safe_norm(v_in) * safe_norm(v_out), min=1e-9)
     r_in = safe_norm(v_in)
@@ -117,18 +119,18 @@ def _run_blocks(params, m, rbf, sbf, t_in, t_out, gb, cfg):
                            device=m.device)
     for blk in params["blocks"]:
         gate = dense(blk["rbf_proj"], rbf)                     # [E, h]
-        x_kj = gather_rows(m, t_in) * gather_rows(gate, t_in)  # [T, h]
+        x_kj = rows(gb, m, t_in) * rows(gb, gate, t_in)        # [T, h]
         low = dense(blk["down"], x_kj)                         # [T, nb]
         tri = torch.einsum("ts,tn,snh->th", sbf, low, blk["bilinear"])
-        agg = segment_sum(tri, t_out, m.shape[0])              # [E, h]
+        agg = scatter(gb, tri, t_out, m.shape[0])              # [E, h]
         m = m + mlp(blk["update"], agg, act=F.silu)
         m = m * gb.edge_mask[:, None]
-        per_node = per_node + segment_sum(
-            dense(blk["out_proj"], m), gb.edge_dst, n)
+        per_node = per_node + scatter(
+            gb, dense(blk["out_proj"], m), gb.edge_dst, n)
     out = mlp(params["head"], per_node, act=F.silu)
     if cfg.graph_level:
-        return segment_sum(out * gb.node_mask[:, None], gb.graph_id,
-                           cfg.n_graphs)
+        return pool(gb, out * gb.node_mask[:, None], gb.graph_id,
+                    cfg.n_graphs)
     return out
 
 

@@ -9,6 +9,7 @@ DimeNet's 2-hop edge pairs from a COO edge list.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -42,6 +43,50 @@ class GraphBatch:
     @property
     def n_graphs(self) -> int:
         return 1
+
+
+@dataclass(frozen=True)
+class PartitionedBatch(GraphBatch):
+    """This rank's blocks of a batch whose nodes, edges (and DimeNet's
+    triplets) are split by rows over a rank mesh, with the
+    ``graphops.distributed.RowPartition`` that reads and sums across
+    them."""
+    partition: Optional[object] = None
+
+
+def partitioned(gb: GraphBatch, partition) -> PartitionedBatch:
+    return PartitionedBatch(**{f.name: getattr(gb, f.name)
+                               for f in dataclasses.fields(GraphBatch)},
+                            partition=partition)
+
+
+def rows(gb: GraphBatch, x: torch.Tensor, idx: torch.Tensor
+         ) -> torch.Tensor:
+    """``x[idx]`` for a node- or edge-indexed ``x`` (global ``idx``)."""
+    if getattr(gb, "partition", None) is not None:
+        return gb.partition.gather(x, idx)
+    out = torch.index_select(x, 0, idx.reshape(-1).long())
+    return out.reshape(*idx.shape, *x.shape[1:])
+
+
+def scatter(gb: GraphBatch, data: torch.Tensor, ids: torch.Tensor,
+            n: int) -> torch.Tensor:
+    """The segment sum of ``data`` into ``n`` node or edge rows (this
+    rank's ``n`` rows of a partitioned batch)."""
+    if getattr(gb, "partition", None) is not None:
+        return gb.partition.scatter(data, ids, n)
+    out = data.new_zeros((n,) + tuple(data.shape[1:]))
+    return out.index_add(0, ids.long(), data)
+
+
+def pool(gb: GraphBatch, data: torch.Tensor, ids: torch.Tensor, n: int
+         ) -> torch.Tensor:
+    """The segment sum of node rows into ``n`` graphs (over every rank's
+    rows of a partitioned batch)."""
+    if getattr(gb, "partition", None) is not None:
+        return gb.partition.pool(data, ids, n)
+    out = data.new_zeros((n,) + tuple(data.shape[1:]))
+    return out.index_add(0, ids.long(), data)
 
 
 def pad_graph(node_feat, edge_src, edge_dst, *, positions=None, labels=None,

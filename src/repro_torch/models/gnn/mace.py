@@ -14,11 +14,10 @@ from typing import Any, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.graphops.segment import segment_sum
 from repro_torch.models.common import (
     Params, gather_rows, mlp, mlp_init, randn,
 )
-from repro_torch.models.gnn.graphdata import GraphBatch
+from repro_torch.models.gnn.graphdata import GraphBatch, pool, rows
 from repro_torch.models.gnn.irreps import (
     IrrepFeat, cg_tensor, irrep_linear, irrep_linear_init, norm_squared,
     spherical_harmonics, valid_paths,
@@ -103,7 +102,7 @@ def forward(params: Params, gb: GraphBatch, cfg: MACEConfig
     """Per-graph energies [n_graphs]."""
     assert gb.positions is not None
     pos = gb.positions.to(cfg.dtype)
-    d_vec = gather_rows(pos, gb.edge_dst) - gather_rows(pos, gb.edge_src)
+    d_vec = rows(gb, pos, gb.edge_dst) - rows(gb, pos, gb.edge_src)
     r = safe_norm(d_vec)
     rbf = bessel_rbf(r, cfg.n_rbf, cfg.cutoff) \
         * poly_envelope(r, cfg.cutoff)[:, None]
@@ -143,7 +142,7 @@ def forward(params: Params, gb: GraphBatch, cfg: MACEConfig
 
     inv = norm_squared(h)
     e_atom = mlp(params["head"], inv, act=F.silu)[:, 0] * gb.node_mask
-    return segment_sum(e_atom, gb.graph_id, cfg.n_graphs)
+    return pool(gb, e_atom, gb.graph_id, cfg.n_graphs)
 
 
 def energy_loss(params: Params, gb: GraphBatch, cfg: MACEConfig,

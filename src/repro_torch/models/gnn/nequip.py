@@ -17,11 +17,10 @@ from typing import Any, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.graphops.segment import segment_sum
 from repro_torch.models.common import (
     Params, gather_rows, mlp, mlp_init, randn,
 )
-from repro_torch.models.gnn.graphdata import GraphBatch
+from repro_torch.models.gnn.graphdata import GraphBatch, pool, rows, scatter
 from repro_torch.models.gnn.irreps import (
     IrrepFeat, cg_tensor, gate, irrep_linear, irrep_linear_init,
     norm_squared, spherical_harmonics, valid_paths,
@@ -74,7 +73,7 @@ def edge_messages(w: torch.Tensor, h: IrrepFeat, sh: IrrepFeat,
                   gb: GraphBatch, paths) -> IrrepFeat:
     """Σ over paths of w[:, path] ⊙ CG(h[src]^{l1}, Y^{l2}) per edge,
     scatter-summed to the destinations: {l3: [N, M, 2l3+1]}."""
-    feat_src = {l: gather_rows(x, gb.edge_src) for l, x in h.items()}
+    feat_src = {l: rows(gb, x, gb.edge_src) for l, x in h.items()}
     msg: IrrepFeat = {}
     for pi, (l1, l2, l3) in enumerate(paths):
         x = feat_src[l1]
@@ -82,7 +81,7 @@ def edge_messages(w: torch.Tensor, h: IrrepFeat, sh: IrrepFeat,
         term = torch.einsum("emi,euj,ijk->emk", x, sh[l2], C)
         term = term * w[:, pi, :, None]
         msg[l3] = msg[l3] + term if l3 in msg else term
-    return {l: segment_sum(x, gb.edge_dst, gb.n_nodes)
+    return {l: scatter(gb, x, gb.edge_dst, gb.n_nodes)
             for l, x in msg.items()}
 
 
@@ -107,7 +106,7 @@ def forward(params: Params, gb: GraphBatch, cfg: NequIPConfig
     """Per-graph energies [n_graphs]."""
     assert gb.positions is not None
     pos = gb.positions.to(cfg.dtype)
-    d_vec = gather_rows(pos, gb.edge_dst) - gather_rows(pos, gb.edge_src)
+    d_vec = rows(gb, pos, gb.edge_dst) - rows(gb, pos, gb.edge_src)
     r = safe_norm(d_vec)
     rbf = bessel_rbf(r, cfg.n_rbf, cfg.cutoff) \
         * poly_envelope(r, cfg.cutoff)[:, None]
@@ -127,7 +126,7 @@ def forward(params: Params, gb: GraphBatch, cfg: NequIPConfig
     inv = norm_squared(h)                                      # [N, M*(L+1)]
     e_atom = mlp(params["head"], inv, act=F.silu)[:, 0]
     e_atom = e_atom * gb.node_mask
-    return segment_sum(e_atom, gb.graph_id, cfg.n_graphs)
+    return pool(gb, e_atom, gb.graph_id, cfg.n_graphs)
 
 
 def energy_loss(params: Params, gb: GraphBatch, cfg: NequIPConfig,

@@ -9,7 +9,10 @@ the reference's choice of which.  Shared experts (Qwen-MoE) are always
 active; a Switch-style load-balancing loss comes back beside the output.
 Experts padded up to ``n_experts_alloc`` are masked out of the router.
 With ``mesh`` (a rank mesh) the layer is the expert-parallel one of
-``moe_sharded.py``.
+``moe_sharded.py``.  While :data:`routing_log` is a list, every routing
+(this layer's and the sharded ones') appends its top-k expert indices and
+fp32 router logits to it, for checks that hold two runs' routing apart
+at near ties.
 """
 from __future__ import annotations
 
@@ -23,6 +26,14 @@ from repro_torch.models.common import Params, dense_init, randn
 from repro_torch.utils.device import DeviceLike
 
 
+routing_log: Optional[list] = None
+
+
+def log_routing(gate_idx: torch.Tensor, logits: torch.Tensor) -> None:
+    if routing_log is not None:
+        routing_log.append((gate_idx.detach(), logits.detach()))
+
+
 @dataclass(frozen=True)
 class MoEConfig:
     n_experts: int
@@ -31,8 +42,10 @@ class MoEConfig:
     n_shared_experts: int = 0       # shared width: n_shared * d_ff_expert
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
-    # a PartitionSpec for the dispatched [E, C, D] buffer, an XLA SPMD
-    # hint: not ported (setting it raises; ROADMAP A11.6d)
+    # a spec (ep, batch axes, None) for the dispatched [E, C, D] buffer
+    # over the ambient mesh; over a rank mesh its per-rank program is
+    # moe_sharded.moe_apply_pjit (each model rank its experts, or its
+    # slice of every expert's d_ff, then a psum)
     dispatch_pspec: Optional[tuple] = None
     # a rank mesh (launch/mesh.py) routes the layer through the explicit
     # expert-parallel layer (moe_sharded.py)
@@ -56,6 +69,13 @@ def _mask_padded(logits: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
         return logits
     idx = torch.arange(cfg.e_alloc, device=logits.device)
     return torch.where(idx[None, :] < cfg.n_experts, logits, -1e30)
+
+
+def expert_counts(flat_e: torch.Tensor, E: int) -> torch.Tensor:
+    """Slots routed to each expert, int64 [E]: ``bincount`` with a
+    known length, as a scatter-add (which also runs on meta tensors)."""
+    return torch.zeros(E, dtype=torch.int64, device=flat_e.device
+                       ).scatter_add_(0, flat_e, torch.ones_like(flat_e))
 
 
 def moe_init(gen: torch.Generator, d_model: int, cfg: MoEConfig,
@@ -89,10 +109,10 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: MoEConfig
     """x: [B, S, D] -> (out [B, S, D], aux_loss fp32 scalar); with
     ``cfg.mesh``, this rank's blocks (see ``moe_sharded``)."""
     if cfg.dispatch_pspec is not None:
-        raise NotImplementedError(
-            "dispatch_pspec is an XLA SPMD sharding hint; the port shards "
-            "the layer explicitly (MoEConfig.mesh) and has no pjit path: "
-            "ROADMAP A11.6d (launch/steps.py)")
+        raise TypeError(
+            "dispatch_pspec names the axes of a rank mesh: run the layer "
+            "through moe_sharded.moe_apply_pjit with the mesh (the "
+            "transformer's decode step over a rank mesh does)")
     if cfg.mesh is not None:
         from repro_torch.models.moe_sharded import moe_apply_sharded
         return moe_apply_sharded(p, x, cfg, cfg.mesh, cfg.data_axes,
@@ -107,6 +127,7 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: MoEConfig
     logits = _mask_padded(logits, cfg)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = torch.topk(probs, K, dim=-1)        # [T, K]
+    log_routing(gate_idx, logits)
     gate_vals = gate_vals / torch.clamp_min(
         torch.sum(gate_vals, dim=-1, keepdim=True), 1e-9)
 
@@ -118,7 +139,7 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: MoEConfig
 
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=E)              # [E]
+    counts = expert_counts(flat_e, E)                         # [E]
     starts = torch.cumsum(counts, 0) - counts                 # exclusive
     pos = torch.arange(TK, device=dev) - starts[sorted_e]     # pos in expert
     keep = pos < C

@@ -18,8 +18,12 @@ the model axis) and run each layer's attention context-parallel
 its S/mp queries and the output is all-gathered back, so activations
 outside attention stay replicated over the model axis; the loss is the
 mean over every data rank.  ``prefill`` and ``decode_step`` ignore it, as
-the reference's do.  Layer-boundary sharding constraints (``act_pspec``)
-are XLA SPMD hints with no eager counterpart: setting one raises.
+the reference's do.  The layer-boundary sharding (``act_pspec``, the
+reference's XLA SPMD constraint over its ambient mesh) means a per-rank
+program over a rank mesh: with ``act_pspec`` set, ``forward``,
+``lm_loss`` and ``prefill`` take the mesh as ``mesh=`` and run
+``transformer_sharded``'s program on this rank's blocks (``decode_step``
+does with ``mesh=`` and the cache's specs).
 """
 from __future__ import annotations
 
@@ -61,9 +65,14 @@ class TransformerConfig:
     attn_chunk: int = 512
     remat: bool = True
     dtype: Any = torch.float32
-    # a layer-boundary activation PartitionSpec, an XLA SPMD hint: not
-    # ported (setting it raises; ROADMAP A11.6d)
+    # layer-boundary activation spec, (data, "model", None) (sequence
+    # parallel) or (data, None, "model") (d_model sharded): the per-rank
+    # programs of transformer_sharded.py over the rank mesh passed as mesh=
     act_pspec: Optional[tuple] = None
+    # the reference fully unrolls its layer and chunk scans with it (its
+    # cost analysis counts a while-loop body once); the port's layers and
+    # chunks are Python loops already, so it changes nothing here
+    unroll_scans: bool = False
     # context-parallel attention over a rank mesh's model axis, the batch
     # sharded over cp_data_axes (see attention.context_parallel_attention)
     cp_mesh: Any = None
@@ -102,12 +111,16 @@ class TransformerConfig:
         return L * (attn_p + ffn + 2 * d) + self.vocab * d + d
 
 
-def _refuse_act_pspec(cfg: TransformerConfig) -> None:
-    if cfg.act_pspec is not None:
-        raise NotImplementedError(
-            "act_pspec is an XLA SPMD sharding constraint with no eager "
-            "counterpart; whole-model sharded execution is ROADMAP A11.6d "
-            "(launch/steps.py)")
+def _ranked(cfg: TransformerConfig, mesh) -> bool:
+    """Whether a call runs the per-rank program (``act_pspec`` set); it
+    then needs the rank mesh."""
+    if cfg.act_pspec is None:
+        if mesh is not None:
+            raise ValueError("mesh= is for the per-rank program: set "
+                             "act_pspec")
+        return False
+    require_rank_mesh(mesh, "TransformerConfig.act_pspec (pass mesh=)")
+    return True
 
 
 # ------------------------------------------------------------------- params
@@ -222,11 +235,14 @@ def _layer_fwd(lp: Params, x: torch.Tensor, cfg: TransformerConfig, cos, sin,
     return _ffn(lp, x + o @ lp["wo"]["w"], cfg)
 
 
-def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
+            mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, S] -> (logits [B, S, V], aux_loss); with ``cp_mesh``,
-    this rank's batch block in and out."""
-    _refuse_act_pspec(cfg)
+    this rank's batch block in and out; with ``act_pspec``, the per-rank
+    program on ``mesh`` (its logits are this rank's vocabulary block)."""
+    if _ranked(cfg, mesh):
+        from repro_torch.models import transformer_sharded as ts
+        return ts.forward(params, tokens, cfg, mesh)
     if cfg.cp_mesh is not None:
         require_rank_mesh(cfg.cp_mesh, "TransformerConfig.cp_mesh")
     B, S = tokens.shape
@@ -249,7 +265,10 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig
 
 
 def lm_loss(params: Params, tokens: torch.Tensor, targets: torch.Tensor,
-            cfg: TransformerConfig) -> torch.Tensor:
+            cfg: TransformerConfig, mesh=None) -> torch.Tensor:
+    if _ranked(cfg, mesh):
+        from repro_torch.models import transformer_sharded as ts
+        return ts.lm_loss(params, tokens, targets, cfg, mesh)
     logits, aux = forward(params, tokens, cfg)
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
@@ -274,11 +293,13 @@ def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int,
 
 
 def prefill(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
-            max_len: int):
+            max_len: int, mesh=None):
     """Run the prompt; returns (last-position logits [B, V], KV cache with
     ``k``/``v`` [L, B, Hkv, max_len, D] zero past the prompt and ``len``
-    [B] int32)."""
-    _refuse_act_pspec(cfg)
+    [B] int32); with ``act_pspec``, this rank's blocks on ``mesh``."""
+    if _ranked(cfg, mesh):
+        from repro_torch.models import transformer_sharded as ts
+        return ts.prefill(params, tokens, cfg, max_len, mesh)
     B, S = tokens.shape
     dev = tokens.device
     x = _embed_tokens(params, tokens, cfg)
@@ -304,15 +325,21 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
 
 
 def decode_step(params: Params, token: torch.Tensor,
-                cache: Dict[str, torch.Tensor], cfg: TransformerConfig):
+                cache: Dict[str, torch.Tensor], cfg: TransformerConfig,
+                mesh=None, cache_spec=None):
     """One decode step.  token [B] int; cache from init_kv_cache/prefill
-    (not modified: the step returns a new one).
+    (not modified: the step returns a new one).  With ``mesh``, this
+    rank's blocks of the token and of the cache under ``cache_spec``
+    (``launch.sharding.kv_cache_shardings``), split-KV
+    (``transformer_sharded.decode_step``).
 
     Each row writes its new key and value at position ``len``, by adding
     them there as the reference's one-hot write does; a row whose ``len``
     has reached ``max_len`` writes nothing and reads RoPE at the last
     position, as the reference's one-hot and clamped gather give it."""
-    _refuse_act_pspec(cfg)
+    if mesh is not None:
+        from repro_torch.models import transformer_sharded as ts
+        return ts.decode_step(params, token, cache, cfg, mesh, cache_spec)
     B = token.shape[0]
     dev = token.device
     max_len = cache["k"].shape[3]

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Iterator, NamedTuple, Tuple
+from typing import Any, Dict, Iterator, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -72,11 +72,14 @@ def _block_size(last: int, block: int) -> int:
     return last
 
 
-def _quant8(x: torch.Tensor, block: int
+def _quant8(x: torch.Tensor, block: int, bs: Optional[int] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(int8 codes [..., d/bs, bs], fp32 scales [..., d/bs, 1]); a true
-    division by the scale, rounding half to even."""
-    bs = _block_size(x.shape[-1] if x.dim() else 1, block)
+    division by the scale, rounding half to even.  ``bs``: the block size
+    of codes already laid out (a rank's block of a moment split along its
+    last dim keeps the whole moment's blocks)."""
+    if bs is None:
+        bs = _block_size(x.shape[-1] if x.dim() else 1, block)
     if x.dim() == 0:
         x = x[None]
         bs = 1
@@ -137,12 +140,16 @@ def global_norm(tree: Params) -> torch.Tensor:
 
 
 def apply_updates(params: Params, grads: Params, state: AdamState,
-                  cfg: AdamWConfig) -> Tuple[Params, AdamState, Dict]:
+                  cfg: AdamWConfig, gnorm: Optional[torch.Tensor] = None
+                  ) -> Tuple[Params, AdamState, Dict]:
     """One AdamW step: (new params, the state with its moments updated in
-    place, {"lr", "gnorm"})."""
+    place, {"lr", "gnorm"}).  ``gnorm``: the global gradient norm when
+    ``grads`` are one rank's blocks (``trainer.make_sharded_train_step``);
+    by default the norm of ``grads``."""
     step = state.step + 1
     lr = schedule(cfg, step)
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     b1, b2 = cfg.beta1, cfg.beta2
@@ -176,7 +183,7 @@ def apply_updates(params: Params, grads: Params, state: AdamState,
                 out.copy_(new_param(ps, u))
                 for (q, s), x in (((mqs, mss), m),
                                   ((vqs, vss), torch.sqrt(v))):
-                    nq, ns = _quant8(x, cfg.block)
+                    nq, ns = _quant8(x, cfg.block, bs=q.shape[-1])
                     q.copy_(nq)
                     s.copy_(ns)
             return newp

@@ -9,6 +9,10 @@ scans them).  ``make_compressed_dp_step`` reduces the data-parallel
 gradients in int8 with error feedback: over a rank mesh's data axis (each
 rank its batch block, as the reference's ``shard_map`` step), or over
 ``n_shards`` shards of the batch run one after another in this process.
+``make_sharded_train_step`` is the step of a cell's per-rank program:
+parameters, moments and batch are this rank's blocks under their specs,
+the gradient of each block is summed over the ranks that hold it and the
+gradient norm is taken over every rank's blocks.
 
 The optimizer updates its moments in place, so a state passed to a step
 must not be used again; the step returns the state to go on with.
@@ -20,7 +24,10 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.launch import collectives as C
-from repro_torch.launch.mesh import require_rank_mesh
+from repro_torch.launch.mesh import axis_product, require_rank_mesh
+from repro_torch.launch.sharding import (
+    entry_axes, n_replicas, spec_leaves, sum_over_replicas,
+)
 from repro_torch.models.common import tree_leaves, tree_map, tree_unflatten
 from repro_torch.train import optimizer as opt
 from repro_torch.train.compression import (
@@ -145,5 +152,84 @@ def make_compressed_dp_step(loss_fn, cfg: opt.AdamWConfig,
                 torch.stack(shard) for shard in zip(
                     *(tree_leaves(e) for e in new_efs))])
         return TrainState(newp, new_opt, new_ef), {"loss": loss, **info}
+
+    return step
+
+
+def _wide_leaves(cfg: opt.AdamWConfig, param_specs, state_specs
+                 ) -> List[Tuple[str, ...]]:
+    """For each parameter, the axes its last dim is split over that its
+    8-bit moment's block dim is not (the rules leave a block count that
+    does not divide whole): such a leaf is updated gathered along its last
+    dim, against the moment every rank holds whole there."""
+    p_specs = spec_leaves(param_specs)
+    if cfg.state_bits != 8:
+        return [()] * len(p_specs)
+    q_specs = spec_leaves(state_specs.opt_state.m)[0::2]
+    out = []
+    for p_sp, q_sp in zip(p_specs, q_specs):
+        last = entry_axes(p_sp[-1]) if p_sp else ()
+        nb = entry_axes(q_sp[-2]) if len(q_sp) >= 2 else ()
+        if last and tuple(nb) != tuple(last):
+            if nb:
+                raise ValueError(f"a parameter split {p_sp} with its 8-bit "
+                                 f"moment split {q_sp}: no per-rank update")
+            out.append(last)
+        else:
+            out.append(())
+    return out
+
+
+def make_sharded_train_step(loss_fn: Callable[[Params, Any], torch.Tensor],
+                            cfg: opt.AdamWConfig, mesh, param_specs,
+                            state_specs=None) -> Callable:
+    """A rank's train step over a rank mesh.
+
+    ``loss_fn(params, batch)`` takes this rank's blocks and returns the
+    global loss, equal on every rank.  Its gradient divided by the mesh
+    size, summed over the axes a leaf is replicated on
+    (``sharding.sum_over_replicas``), is each block's gradient of the
+    global loss; the clip norm sums every block's squares once
+    (``n_replicas``) over the mesh.  ``state_specs`` (a ``TrainState`` of
+    specs) is needed for 8-bit moments (:func:`_wide_leaves`).  ``mesh``
+    may be a shape-only mesh until the step is called."""
+    from repro_torch.graphops.distributed import flat_axis_index
+    sps = spec_leaves(param_specs)
+    wide = _wide_leaves(cfg, param_specs, state_specs)
+    axes = tuple(mesh.axis_names)
+
+    def widen(x, ax):
+        return C.all_gather(x, ax, mesh, axis=x.dim() - 1) if ax else x
+
+    def narrow(x, ax):
+        if not ax:
+            return x
+        n = x.shape[-1] // axis_product(mesh, ax)
+        return x.narrow(x.dim() - 1, flat_axis_index(ax, mesh) * n,
+                        n).clone()
+
+    def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        require_rank_mesh(mesh, "make_sharded_train_step")
+        live = tree_map(lambda t: t.detach().requires_grad_(), state.params)
+        leaves = tree_leaves(live)
+        with torch.enable_grad():
+            loss = loss_fn(live, batch)
+            grads = torch.autograd.grad(loss / mesh.size, leaves)
+        grads = [sum_over_replicas(g, sp, mesh) for g, sp in zip(grads, sps)]
+        with torch.no_grad():
+            sq = sum(torch.sum(torch.square(g.to(torch.float32)))
+                     / n_replicas(sp, mesh) for g, sp in zip(grads, sps))
+            gnorm = torch.sqrt(C.psum(sq, axes, mesh))
+            params = [widen(p.detach(), ax) for p, ax in
+                      zip(tree_leaves(state.params), wide)]
+            grads = [widen(g, ax) for g, ax in zip(grads, wide)]
+            newp, new_opt, info = opt.apply_updates(
+                tree_unflatten(state.params, params),
+                tree_unflatten(state.params, grads), state.opt_state, cfg,
+                gnorm=gnorm)
+            newp = tree_unflatten(state.params, [
+                narrow(p, ax) for p, ax in zip(tree_leaves(newp), wide)])
+        return TrainState(newp, new_opt, None), {"loss": loss.detach(),
+                                                 **info}
 
     return step

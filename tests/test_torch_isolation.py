@@ -58,7 +58,9 @@ def test_port_has_the_slice_modules():
                  "models.recsys.mind", "configs.dimenet", "configs.nequip",
                  "configs.mace", "configs.mind", "utils.jax_random",
                  "launch.collectives", "launch.sharding", "launch.spawn",
-                 "models.moe_sharded"):
+                 "models.moe_sharded", "models.transformer_sharded",
+                 "launch.steps", "launch.dryrun", "roofline",
+                 "roofline.analysis", "roofline.report_md"):
         assert f"repro_torch.{name}" in mods, name
     for src in ("block_spmm", "segment_agg", "flash_attention"):
         assert (PORT / "kernels" / "csrc" / f"{src}.cu").is_file(), src
@@ -599,3 +601,40 @@ def test_chip_smoke_multidevice_phase_rehearses_on_cpu():
     assert rec["12e_mind"]["max_abs_err"] < 1e-5
     assert set(rec["seconds"]) == {"12a_moe", "12b_pna", "12c_attention",
                                    "12d_dp_step", "12e_mind"}
+
+
+def test_chip_smoke_cells_phase_rehearses_on_cpu():
+    """Phase 13 at smoke sizes on 4 CPU ranks (gloo): the train cell's
+    fp32 step and the decode cell's step equal their single-process twins
+    on every rank, the bf16 step's loss finite, the dry run's bound
+    counted for the same cell; no kernel launched and no rank left
+    running."""
+    import importlib.util
+    import multiprocessing as mp
+    import time
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", SMOKE)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    t0 = time.time()
+    rec = smoke.cells_phase("cpu", full=False)
+    assert time.time() - t0 < 60
+    assert not mp.active_children()
+    assert rec["backend"] == "gloo" and rec["devices"] == ["cpu"] * 4
+    a, b = rec["13a_train"], rec["13b_decode"]
+    assert a["act_pspec"] == ["data", "model", None] and a["seq_sharded"]
+    assert len(a["parity_by_rank"]) == 4
+    for par in a["parity_by_rank"]:
+        assert par["routing_partings"] == 0
+        assert set(par["scaled"]) >= {"params", "m", "v", "loss", "gnorm"}
+        assert max(par["scaled"].values()) <= smoke.CELL_TOL
+    assert a["fp32_collectives"]["all_to_all"]["calls"] > 0
+    assert a["fp32_collectives"]["reduce_scatter"]["calls"] > 0
+    assert a["bf16_loss"] == a["bf16_loss"] and a["bf16_step_ms"]
+    bound = a["dryrun_bound"]
+    assert bound["bound_ms"] > 0 and bound["dominant"] in (
+        "compute", "memory", "collective")
+    assert b["dispatch_pspec"][0] == "model"
+    for par in b["parity_by_rank"]:
+        assert max(par["scaled"].values()) <= smoke.CELL_TOL
+    assert set(rec["seconds"]) == {"13a_train", "13b_decode"}

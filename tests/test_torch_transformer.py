@@ -304,18 +304,27 @@ def test_moe_apply(case):
 
 
 def test_mesh_paths_raise():
-    """The XLA SPMD hints (``act_pspec``, ``dispatch_pspec``) still raise,
-    naming A11.6d; ``cp_mesh`` and ``MoEConfig.mesh`` run on a rank mesh
-    (tests/test_torch_multidevice) and refuse any other object;
+    """The XLA SPMD hints run as per-rank programs over a rank mesh
+    (tests/test_torch_cells_multidevice): ``act_pspec`` needs the mesh
+    (``mesh=``) and takes its two boundary forms only, ``mesh=`` without
+    it is refused, and ``dispatch_pspec`` points ``moe_apply`` at its rank
+    layer (``moe_sharded.moe_apply_pjit``); ``cp_mesh`` and
+    ``MoEConfig.mesh`` run on a rank mesh and refuse any other object;
     ``prefill`` ignores ``cp_mesh``, as the reference's does."""
+    from repro_torch.launch.mesh import make_meta_mesh
     cfg = dataclasses.replace(p_configs.get_arch("starcoder2-3b").smoke(),
                               act_pspec=("data", None, None))
     params = p_tfm.init_params(torch.Generator().manual_seed(0), cfg,
                                device="cpu")
     toks = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="A11.6d"):
+    with pytest.raises(TypeError, match="rank mesh"):
         p_tfm.forward(params, toks, cfg)
+    with pytest.raises(ValueError, match="per-rank program"):
+        p_tfm.forward(params, toks.to("meta"), cfg,
+                      mesh=make_meta_mesh((1, 1)))
     plain = dataclasses.replace(cfg, act_pspec=None)
+    with pytest.raises(ValueError, match="act_pspec"):
+        p_tfm.forward(params, toks, plain, mesh=make_meta_mesh((1, 1)))
     cp = dataclasses.replace(plain, cp_mesh=object())
     with pytest.raises(TypeError, match="rank mesh"):
         p_tfm.forward(params, toks, cp)
@@ -327,7 +336,7 @@ def test_mesh_paths_raise():
         p_moe.moe_apply({}, torch.zeros((1, 2, 4)), mc)
     mc = p_moe.MoEConfig(n_experts=2, top_k=1, d_ff_expert=4,
                          dispatch_pspec=("model", "data", None))
-    with pytest.raises(NotImplementedError, match="A11.6d"):
+    with pytest.raises(TypeError, match="moe_apply_pjit"):
         p_moe.moe_apply({}, torch.zeros((1, 2, 4)), mc)
 
 
