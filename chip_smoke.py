@@ -10,8 +10,10 @@ Phases:
      power limit;
   2. hold ``block_spmm`` against its plain PyTorch version on the card, at
      unit shapes (small integers, values above 255 in every K slab or in
-     some, counts near 2^24) and at the FinBench workload shape, and time
-     kernel, plain version and a ``torch.matmul`` fp32 yardstick;
+     some, counts near 2^24), at fp32-route shapes whose plan splits K
+     (every operand, semiring, output and mask case; two launches
+     bit-identical) and at the FinBench workload shape, and time kernel,
+     plain version and a ``torch.matmul`` fp32 yardstick;
   3. the SNB main path: ``snb_like(seed=0)`` through ``GraphSession``,
      timed one read and one write at a time as the workload driver's
      table (each read without views, one warm-up and 3 timed runs, the
@@ -38,8 +40,9 @@ Phases:
   6. attention: ``flash_attention`` against its plain version at the
      reference's test shapes (fp32), at decode shapes that split over keys
      (bf16 and fp32) and at starcoder2-3b and gemma-2b shapes (bf16), timed
-     beside ``scaled_dot_product_attention``; then its main path, the
-     three model shapes once more;
+     beside ``scaled_dot_product_attention``, the fp32 route at one unit
+     shape beside its bound and SDPA on fp32 inputs; then its main path,
+     the three model shapes once more;
   7. serving, after phase 4's sessions are freed: (a) SNB through
      ``GraphSession.serve`` with the workload driver's serve script (each
      read unbound and for 16 clients bound to one start node, a fence a
@@ -55,8 +58,8 @@ Phases:
      through ``block_spmm``'s fp32 route over KNOWS2 and ROOT_POST equals
      the segment path; a ``ViewEmbedder`` behind a ``ServeEngine``
      answers before and after a ``knows`` fence; then one launch at each
-     view's shape is held to the plain version and timed beside
-     ``torch.matmul``;
+     view's shape is held to the plain version and to a second launch,
+     and timed beside ``torch.matmul`` with its split-K plan;
   9. sharded execution on SNB at half scale: a session with
      ``ExecConfig(data_shards=4)`` and ``shard_devices=["cuda:0"] * 4``
      (four logical shards on one card, named explicitly) held read by read
@@ -175,6 +178,19 @@ PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 
 UNIT_SHAPES = [(8, 16, 12), (128, 128, 128), (100, 200, 150), (256, 384, 128)]
+# fp32 route shapes whose few output tiles make the kernel split K: S <= 128
+# with K >= 8,192, aligned; the ragged (100, 9000, 150) (N % 4 != 0, and
+# K % 16 != 0 for a uint8 F); and one with K % 4 != 0 as well.  Each in
+# count (fp32, int32 out) and bool (fp32, int32, uint8 out), masked or not,
+# for F x A in fp32 x fp32, fp32 x int32, int32 x fp32, bool x fp32
+FP32_SPLIT_SHAPES = [(64, 8192, 128), (100, 9000, 150), (37, 8195, 61)]
+FP32_SPLIT_OPERANDS = [(torch.float32, torch.float32),
+                       (torch.float32, torch.int32),
+                       (torch.int32, torch.float32),
+                       (torch.bool, torch.float32)]
+FP32_SPLIT_OUTS = [(True, torch.float32), (True, torch.int32),
+                   (False, torch.float32), (False, torch.int32),
+                   (False, torch.uint8)]
 WORKLOAD_SHAPE = (256, 27264, 27264)   # src_block x node_cap x node_cap
 # frontier rows of the serve path's adaptive blocks (8, 16, ..., 256) at
 # the FinBench shape: checked exactly at these rungs, timed at 8 and 256
@@ -208,6 +224,8 @@ ATTN_UNIT_SHAPES = [(1, 2, 2, 128, 128, 64), (2, 4, 4, 256, 256, 128),
 # keys, with a shorter last chunk (11 chunks of 6, 6, ..., 4 kv tiles; 32
 # chunks of 3, ..., 1 tiles of 32 keys, the last one ragged)
 ATTN_SPLIT_SHAPES = [(1, 24, 2, 1, 4096, 128), (1, 8, 1, 37, 3001, 256)]
+# the fp32 route's timed shape, one of the unit shapes, causal
+ATTN_FP32_TIMED = (2, 4, 4, 256, 256, 128)
 ATTN_MODEL_SHAPES = {
     "starcoder2-3b prefill": (1, 24, 2, 4096, 4096, 128),
     "starcoder2-3b chunked decode": (1, 24, 2, 128, 4096, 128),
@@ -375,12 +393,16 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 def device_ms(fn, kernel: str = "", iters: int = 20,
-              flush: bool = True) -> float:
+              flush: bool = True, per_launch: bool = False) -> float:
     """Mean device time per call of ``fn``: the device work whose name
     holds ``kernel`` (all of it where ``kernel`` is empty), summed from a
     ``torch.profiler`` trace, so no host time enters.  With ``flush``, a
     128 MB write evicts the L2 before each call (it is not counted), as a
-    caller that moved other data just before would leave it."""
+    caller that moved other data just before would leave it.  With
+    ``per_launch``, for kernels that ``fn`` launches once a call each: the
+    mean over each kernel's traced launches, summed over the kernels, so a
+    trace that dropped some launches (the profiler can, late in a long
+    process) still gives the call's time."""
     from torch.profiler import ProfilerActivity, profile
     check(bool(kernel) or not flush, "device_ms would count the L2 flush")
     buf = (torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
@@ -393,12 +415,18 @@ def device_ms(fn, kernel: str = "", iters: int = 20,
                 buf.zero_()
             fn()
         torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and kernel in e.name]
-    check(len(us) >= iters, f"the profiler saw {len(us)} device ops "
-                            f"named {kernel!r} in {iters} calls")
-    return sum(us) / iters / 1e3
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and kernel in e.name:
+            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    n = sum(len(v) for v in by_name.values())
+    check(n >= (1 if per_launch else iters),
+          f"the profiler saw {n} device ops named {kernel!r} in {iters} "
+          f"calls")
+    if per_launch:
+        return sum(sum(v) / len(v) for v in by_name.values()) / 1e3
+    return sum(sum(v) for v in by_name.values()) / iters / 1e3
 
 
 def reset_launches(ops) -> None:
@@ -458,6 +486,49 @@ def wide_cases(dev) -> dict:
     return out
 
 
+def spmm_fp32_split_checks(ops, ref, dev, rng) -> dict:
+    """The fp32 route where its plan splits K: ``FP32_SPLIT_SHAPES`` on
+    integer-valued operands, equal to the plain version in every operand,
+    semiring, output and mask case; then random fp32 operands, where two
+    launches give the same bits and stay within the any-order bound of the
+    plain version (positive terms: 2(K+1)·2^-24 relative)."""
+    cases, n_split = 0, {}
+    for (S, K, N) in FP32_SPLIT_SHAPES:
+        if dev.type == "cuda":
+            plan = ops.spmm_fp32_launch_plan(
+                torch.empty((S, K), device=dev), torch.empty((K, N),
+                                                             device=dev))
+            check(plan.n_split > 1, f"no split at {(S, K, N)}: {plan}")
+            n_split[str((S, K, N))] = plan.n_split
+        Fi = torch.from_numpy(rng.integers(0, 3, (S, K))).to(dev)
+        Ai = torch.from_numpy((rng.random((K, N)) < 0.2).astype(np.int32)
+                              ).to(dev)
+        m = torch.from_numpy(rng.integers(0, 2, N)).to(dev)
+        for f_dtype, a_dtype in FP32_SPLIT_OPERANDS:
+            F, A = Fi.to(f_dtype), Ai.to(a_dtype)
+            for counting, out_dtype in FP32_SPLIT_OUTS:
+                for mask in (None, m):
+                    semiring = "count" if counting else "bool"
+                    got = ops.block_spmm(F, A, mask, counting=counting,
+                                         out_dtype=out_dtype)
+                    want = ref.block_spmm_ref(F, A, mask, semiring=semiring)
+                    check(got.dtype == out_dtype
+                          and torch.equal(got.to(torch.float32), want),
+                          f"block_spmm fp32 route != plain at {(S, K, N)} "
+                          f"F={f_dtype} A={a_dtype} {semiring} "
+                          f"out={out_dtype} mask={mask is not None}")
+                    cases += 1
+        F = torch.from_numpy(rng.random((S, K), dtype=np.float32)).to(dev)
+        A = torch.from_numpy(rng.random((K, N), dtype=np.float32)).to(dev)
+        first = ops.block_spmm(F, A)
+        check(torch.equal(first, ops.block_spmm(F, A)),
+              f"two fp32 launches differ at {(S, K, N)}")
+        within(first.cpu().numpy(), ref.block_spmm_ref(F, A).cpu().numpy(),
+               2 * (K + 1) * 2.0 ** -24, 1e-6,
+               f"block_spmm fp32 random operands at {(S, K, N)}")
+    return {"cases": cases, "n_split": n_split}
+
+
 def spmm_checks(ops, ref) -> dict:
     """Exact kernel == plain comparisons (integer-valued inputs) plus the
     workload-shape timings.  Returns the kernel's JSON record fields."""
@@ -484,6 +555,10 @@ def spmm_checks(ops, ref) -> dict:
                           f"block_spmm != plain at {(S, K, N)} "
                           f"counting={counting} F={f_dtype} mask={masked}")
     log(f"phase 2: unit shapes exact ({len(UNIT_SHAPES) * 12} cases)")
+    split = spmm_fp32_split_checks(ops, ref, dev, rng)
+    log(f"phase 2: fp32 route split cases exact ({split['cases']} cases), "
+        f"two launches bit-identical; n_split by shape "
+        + json.dumps(split["n_split"]))
     slow = ops.spmm_slow_slabs(dev)
     wide = wide_cases(dev)
     for case, (F, A, want_slow) in wide.items():
@@ -1311,7 +1386,10 @@ def spmm_fp32_bound_ms(S: int, K: int, N: int) -> tuple:
 
 def spmm_fp32_check(ops, ref, adj, h, what: str) -> dict:
     """One ``block_spmm`` launch on its fp32 route against the plain
-    version; timed beside it and ``torch.matmul`` (TF32 off) on the card."""
+    version and against a second launch (the same bits); on the card its
+    split-K plan, and its time per call (CUDA events) and on the device
+    alone (profiler) beside the plain version's and ``torch.matmul``'s
+    (TF32 off)."""
     S, K = adj.shape
     N = h.shape[1]
     got = ops.block_spmm(adj, h, counting=True, out_dtype=torch.float32)
@@ -1325,14 +1403,31 @@ def spmm_fp32_check(ops, ref, adj, h, what: str) -> dict:
     rec = {"shape": [S, K, N], "max_row_nonzeros": k, "tolerance": tol,
            "max_abs_err": within(got.cpu().numpy(), want.cpu().numpy(),
                                  *tol, what)}
+    check(torch.equal(got, ops.block_spmm(adj, h, counting=True,
+                                          out_dtype=torch.float32)),
+          f"{what}: two launches differ")
     rec["bound_ms"], rec["bound_by"] = spmm_fp32_bound_ms(S, K, N)
     rec["bound_rates"] = {"fp32_flop_per_s": PEAK_FP32_FLOPS,
                           "bytes_per_s": PEAK_BYTES}
     if adj.device.type == "cuda":
+        plan = ops.spmm_fp32_launch_plan(adj, h)
+        rec["plan"] = {"n_split": plan.n_split, "grid": list(plan.grid),
+                       "slots": plan.slots, "waves": plan.waves,
+                       "workspace_bytes": 4 * plan.workspace}
         rec["ms"] = cuda_ms(lambda: ops.block_spmm(
             adj, h, counting=True, out_dtype=torch.float32), 20)
         rec["plain_ms"] = cuda_ms(lambda: ref.block_spmm_ref(adj, h), 20)
         rec["library_ms"] = cuda_ms(lambda: torch.matmul(adj, h), 20)
+        # on the device alone (profiler): each of the route's kernels by
+        # its mean launch, and the library call's
+        kernels = ("spmm_fp32_kernel",) + (
+            ("spmm_fp32_finish",) if plan.n_split > 1 else ())
+        rec["device_ms_by_kernel"] = {k: device_ms(lambda: ops.block_spmm(
+            adj, h, counting=True, out_dtype=torch.float32), k,
+            flush=False, per_launch=True) for k in kernels}
+        rec["device_ms"] = sum(rec["device_ms_by_kernel"].values())
+        rec["library_device_ms"] = device_ms(lambda: torch.matmul(adj, h),
+                                             flush=False, per_launch=True)
     return rec
 
 
@@ -1695,6 +1790,22 @@ def attention_phase(ops, ref) -> dict:
     log(f"phase 6: unit shapes within (rtol, atol) "
         f"{ATTN_TOL[torch.float32]} in fp32 ({len(ATTN_UNIT_SHAPES) * 2} "
         f"cases)")
+    q, k, v = qkv(*ATTN_FP32_TIMED, torch.float32, 0.5)
+    fp32_rec = {"shape": list(ATTN_FP32_TIMED),
+                "max_abs_err": compare(q, k, v, True, "fp32 timed shape")[1],
+                **dict(zip(("bound_ms", "bound_by"),
+                           attn_bound_ms(q, k, True))),
+                "ms": cuda_ms(lambda: ops.flash_attention(q, k, v), 20),
+                "plain_ms": cuda_ms(
+                    lambda: ref.flash_attention_ref(q, k, v), 5),
+                "library_ms": cuda_ms(lambda: sdpa(q, k, v, True), 20),
+                "library": sdpa_kernels(lambda: sdpa(q, k, v, True)),
+                "device_ms": device_ms(lambda: ops.flash_attention(q, k, v),
+                                       "flash_kernel", flush=False,
+                                       per_launch=True),
+                "library_device_ms": device_ms(lambda: sdpa(q, k, v, True),
+                                               flush=False, per_launch=True)}
+    log(f"phase 6: fp32 route (TF32 off) {json.dumps(fp32_rec)}")
     for shape in ATTN_SPLIT_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             for causal in (True, False):
@@ -1752,7 +1863,7 @@ def attention_phase(ops, ref) -> dict:
     del models
     torch.cuda.empty_cache()
     return {"max_abs_err": max_err, "launches": launches,
-            "launches_by_route": routes,
+            "launches_by_route": routes, "fp32": fp32_rec,
             **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms")}, "shapes": records}
 
@@ -3753,6 +3864,7 @@ def main() -> int:
         "slow_slabs": slow_slabs + fin_serve["slow_slabs"],
         "ms_by_rows": {k: v["ms"] for k, v in rec["by_rows"].items()},
         "fp32_at_root_post": gnn["kernel"],
+        "fp32_at_knows2": gnn["kernel_knows2"],
     }, {
         "name": "segment_multi_agg", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/segment_agg.cu",
@@ -3766,6 +3878,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:73",
         **{k: attn[k] for k in keys}, "checked": True,
         "launches_by_route": attn["launches_by_route"],
+        "fp32_route": attn["fp32"],
         "chunked_prefill_ms": side["llm"]["prefill_attention"]["ms"][
             "chunked"],
     }]

@@ -4,9 +4,10 @@
 // _spmm_kernel): one frontier hop of the MV4PG executor over a dense
 // label-masked adjacency.  "count" gives walk counts; "bool" clamps the sum
 // to min(acc, 1).  The output is fp32, int32 or uint8 (a 0/1 frontier),
-// written directly; ragged edges are masked in the loads and the store, so
-// no operand is padded or copied.  The semiring clamp and the column mask
-// are applied once, after the last K slab.
+// written directly, or by a second kernel that adds the fp32 route's
+// partial sums over ranges of K; ragged edges are masked in the loads and
+// the stores, so no operand is padded or copied.  The semiring clamp and
+// the column mask are applied once, after the full sum.
 //
 // Bound at the workload shape (FinBench, S = src_block = 256,
 // K = N = node_cap = 27,264, int32 operands): the main path's operands are
@@ -48,11 +49,45 @@
 //   one to a device counter (slow_slabs) that the caller reads when it
 //   chooses; the launch itself never syncs.
 //
-// fp32 operands (either operand float32) -> spmm_kernel, the first port's
-//   v3 kernel, unchanged: IEEE fp32 FMA on the CUDA cores (TF32's 10-bit
-//   mantissa would break exact counts), 128 x 128 tiles, 8-deep slabs in
-//   two buffers, 8 x 8 register micro-tiles read as 16-byte vectors,
-//   __launch_bounds__(256, 2).
+// fp32 operands (either operand float32) -> f32::spmm_fp32_kernel, IEEE fp32
+//   FMA on the CUDA cores.  TF32 or bf16 tensor cores would round the
+//   operands to 10 or 7 mantissa bits and break exact counts; an
+//   error-free split over the tensor cores is later work.  Bound at SAGE's
+//   aggregation over ROOT_POST (F the dense adjacency, S = K = 13,440,
+//   A = h with N = 128): 2*S*K*N = 46.2 GFLOP take 0.690 ms at the 67
+//   TFLOP/s fp32 peak, while the 722 MB of F (plus 6.9 MB each of A and
+//   out) take 0.220 ms at 3.35 TB/s: the route is bound by operations.
+//   So every SM must be busy and nearly every issued instruction an FMA:
+//   - Split-K.  With N = 128 the 128 x 128 output tiles are few (105 at
+//     ROOT_POST, 16 at KNOWS2's 2,048 nodes) against 132 SMs, so the
+//     host's planner (ops.spmm_fp32_plan) cuts K into n_split ranges of
+//     whole 32-deep slabs, shared evenly (the first n_slabs % n_split one
+//     slab longer), and blockIdx.z picks the range: 105 x 5 blocks fill
+//     four waves of 132 at ROOT_POST (99.4%), 16 x 8 one wave at KNOWS2.
+//     Each split writes its raw fp32 sums into a partial [S, N] of a
+//     workspace the caller allocates; spmm_fp32_finish_kernel then adds
+//     the partials in split order (the same bits on every launch: no
+//     float atomics) and applies the epilogue once.  With one split the
+//     kernel applies it itself.
+//   - An asynchronous ring.  Six stages of a 32-deep slab (F [128][32]
+//     and A [32][128] in their own types, 34 KB for fp32 F) are filled by
+//     cp.async in 16-byte chunks, five slabs in flight while one is
+//     multiplied.  A slab inside S, N and the split, with 16-byte aligned
+//     rows, takes 8 copies a thread from pointers that advance a slab at a
+//     time; a slab at an edge is masked chunk by chunk, and copied element
+//     by element where a row is not aligned (K % 4 != 0, N % 4 != 0).
+//     Integer F or A is converted to fp32 as it is read from shared memory.
+//   - 8 x 8 register micro-tiles.  A thread owns rows ty*4 + {0..3, 64..67}
+//     and columns tx*4 + {0..3, 64..67}; per 4 K it reads 8 rows of F as
+//     16-byte vectors along K and 2 x 4 16-byte vectors of A, for 256
+//     FMAs.  F rows are padded to 144 bytes so that the two rows a warp
+//     reads at once (4 apart) lie on other banks.
+//   One block of 256 threads an SM: the ring's 204 KB of shared memory and
+//   up to 255 registers a thread.  Capped at 128 registers for two blocks
+//   an SM, the compiler spills inside the slab loop, which costs more than
+//   the second block's warps hide.  The semiring clamp, the column mask and
+//   the conversion to the output type come once, after the full sum; K = 0
+//   writes zeros.
 //
 // wgmma with TMA, and storing cached adjacencies as uint8 (a quarter of
 // the bytes of A), are later work.
@@ -62,23 +97,7 @@
 
 namespace {
 
-constexpr int BM = 128;      // output rows (sources) per block
-constexpr int BN = 128;      // output columns per block
-constexpr int BK = 8;        // K slab depth
-constexpr int TM = 8;        // rows per thread
-constexpr int TN = 8;        // columns per thread
-constexpr int THREADS = 256;
-constexpr int F_LOADS = BM * BK / THREADS;   // 4
-constexpr int A_LOADS = BK * BN / THREADS;   // 4
-// F slab is stored transposed ([k][m]); the +4 pad spreads the transposing
-// store over all 32 banks and keeps rows 16-byte aligned.
-constexpr int FS_LD = BM + 4;
-
 enum DType { DT_INT32 = 0, DT_UINT8 = 1, DT_FLOAT32 = 2 };
-
-template <typename T> __device__ __forceinline__ float to_f32(T v) {
-  return static_cast<float>(v);
-}
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) {
@@ -91,62 +110,284 @@ template <> __device__ __forceinline__ uint8_t from_f32<uint8_t>(float v) {
   return static_cast<uint8_t>(v);
 }
 
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy; zero-fills the destination when !pred.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
+                   "r"(smem_addr(dst)), "l"(src), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Copy one 16-byte chunk of a row (elements col.. of ``limit``), as
+// cp.async when the row is aligned (``vec``: a chunk lies wholly in or out
+// of range) or element by element otherwise; zeros out of range.
+template <typename T>
+__device__ __forceinline__ void copy_chunk(uint8_t* dst, const T* row,
+                                           int col, int limit, bool row_ok,
+                                           bool vec) {
+  constexpr int E = 16 / sizeof(T);
+  if (vec) {
+    const bool ok = row_ok && col < limit;
+    cp_async16(dst, ok ? row + col : row, ok);
+    return;
+  }
+  T* d = reinterpret_cast<T*>(dst);
+#pragma unroll
+  for (int e = 0; e < E; ++e)
+    d[e] = row_ok && col + e < limit ? row[col + e] : T(0);
+}
+
+// ---------------------------------------------------------------------------
+// The fp32 route
+// ---------------------------------------------------------------------------
+
+namespace f32 {
+
+constexpr int BM = 128;        // output rows of a block
+constexpr int BN = 128;        // output columns of a block
+constexpr int BK = 32;         // K slab
+constexpr int TM = 8;          // rows a thread
+constexpr int TN = 8;          // columns a thread
+constexpr int THREADS = 256;   // 16 x 16 threads
+constexpr int STAGES = 6;      // slabs in the cp.async ring
+constexpr int A_ROW = BN * 4;  // bytes of a row of the A slab
+constexpr int FINISH_THREADS = 256;
+
+// Bytes of a row of the F slab in F's own type, padded by 16 bytes.
+template <typename TF> __host__ __device__ constexpr int f_row() {
+  return BK * static_cast<int>(sizeof(TF)) + 16;
+}
+template <typename TF> __host__ __device__ constexpr int stage_bytes() {
+  return BM * f_row<TF>() + BK * A_ROW;
+}
+template <typename TF> __host__ __device__ constexpr int smem_bytes() {
+  return STAGES * stage_bytes<TF>();
+}
+
 // Row (or column) of micro-tile index i in 0..7 for lane t in 0..15.
 __device__ __forceinline__ int tile_index(int t, int i) {
   return (i < 4 ? 0 : 64 - 4) + t * 4 + i;
 }
 
-// Global -> registers for the slab starting at k0 (zero outside bounds).
+// Four consecutive values from shared memory as fp32.
+template <typename T>
+__device__ __forceinline__ void ld4(const uint8_t* p, float* v);
+template <>
+__device__ __forceinline__ void ld4<float>(const uint8_t* p, float* v) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+}
+template <>
+__device__ __forceinline__ void ld4<int32_t>(const uint8_t* p, float* v) {
+  const int4 x = *reinterpret_cast<const int4*>(p);
+  v[0] = static_cast<float>(x.x); v[1] = static_cast<float>(x.y);
+  v[2] = static_cast<float>(x.z); v[3] = static_cast<float>(x.w);
+}
+template <>
+__device__ __forceinline__ void ld4<uint8_t>(const uint8_t* p, float* v) {
+  const unsigned x = *reinterpret_cast<const unsigned*>(p);
+#pragma unroll
+  for (int b = 0; b < 4; ++b) v[b] = static_cast<float>((x >> (8 * b)) & 0xffu);
+}
+
+// Four consecutive outputs at p (16-byte aligned for 4-byte types).
+template <typename T>
+__device__ __forceinline__ void st4(T* p, const float* v);
+template <> __device__ __forceinline__ void st4<float>(float* p,
+                                                        const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+template <> __device__ __forceinline__ void st4<int32_t>(int32_t* p,
+                                                          const float* v) {
+  *reinterpret_cast<int4*>(p) =
+      make_int4(from_f32<int32_t>(v[0]), from_f32<int32_t>(v[1]),
+                from_f32<int32_t>(v[2]), from_f32<int32_t>(v[3]));
+}
+template <> __device__ __forceinline__ void st4<uint8_t>(uint8_t* p,
+                                                          const float* v) {
+  *reinterpret_cast<unsigned*>(p) =
+      static_cast<unsigned>(from_f32<uint8_t>(v[0])) |
+      static_cast<unsigned>(from_f32<uint8_t>(v[1])) << 8 |
+      static_cast<unsigned>(from_f32<uint8_t>(v[2])) << 16 |
+      static_cast<unsigned>(from_f32<uint8_t>(v[3])) << 24;
+}
+
+// The epilogue of one output: semiring clamp, then the column mask.
+__device__ __forceinline__ float finish(float v, float cm, int bool_mode) {
+  return (bool_mode ? fminf(v, 1.f) : v) * cm;
+}
+
+// Four outputs of row gm from column gn on: one vector store where
+// ``vec`` (N % 4 == 0, aligned) and all four lie inside N, else one by one.
+template <typename TO>
+__device__ __forceinline__ void store4(TO* __restrict__ out, long long gm,
+                                       int gn, int N, float* v, bool vec) {
+  TO* p = out + gm * N + gn;
+  if (vec && gn + 3 < N) {
+    st4<TO>(p, v);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (gn + e < N) p[e] = from_f32<TO>(v[e]);
+}
+
+struct Tile {
+  int S, K, N, row0, col0, k_end;
+  bool vec_f, vec_a;
+};
+
+// Start loading a slab at an edge (past S, N, K or the split, or with rows
+// not 16-byte aligned) into ring stage ``stage``: F [BM][BK] in rows of
+// f_row bytes, then A [BK][BN], each in its own type, masked chunk by chunk.
 template <typename TF, typename TA>
-__device__ __forceinline__ void load_slab(
-    const TF* __restrict__ F, const TA* __restrict__ A, int S, int K, int N,
-    int row0, int col0, int k0, int tid, float (&f_reg)[F_LOADS],
-    float (&a_reg)[A_LOADS]) {
+__device__ __forceinline__ void fetch_edge(const TF* __restrict__ F,
+                                           const TA* __restrict__ A,
+                                           const Tile& t, int k0,
+                                           uint8_t* stage, int tid) {
+  constexpr int FE = 16 / sizeof(TF);           // elements of F a chunk
+  constexpr int F_CHUNKS = BK / FE;             // chunks of an F row
 #pragma unroll
-  for (int r = 0; r < F_LOADS; ++r) {
-    const int e = tid + r * THREADS;
-    const int gm = row0 + e / BK, gk = k0 + e % BK;
-    f_reg[r] = (gm < S && gk < K)
-                   ? to_f32(F[static_cast<long long>(gm) * K + gk]) : 0.f;
+  for (int i = 0; i < BM * F_CHUNKS / THREADS; ++i) {
+    const int ch = tid + i * THREADS;
+    const int r = ch / F_CHUNKS, cc = ch % F_CHUNKS;
+    const int gm = t.row0 + r;
+    copy_chunk(stage + r * f_row<TF>() + cc * 16,
+               F + static_cast<long long>(gm < t.S ? gm : 0) * t.K,
+               k0 + cc * FE, t.k_end, gm < t.S, t.vec_f);
   }
+  uint8_t* as = stage + BM * f_row<TF>();
 #pragma unroll
-  for (int r = 0; r < A_LOADS; ++r) {
-    const int e = tid + r * THREADS;
-    const int gk = k0 + e / BN, gn = col0 + e % BN;
-    a_reg[r] = (gk < K && gn < N)
-                   ? to_f32(A[static_cast<long long>(gk) * N + gn]) : 0.f;
-  }
-}
-
-// Registers -> one shared-memory buffer (F transposed: Fs[k][m]).
-__device__ __forceinline__ void store_slab(
-    float (*Fs)[FS_LD], float (*As)[BN], int tid,
-    const float (&f_reg)[F_LOADS], const float (&a_reg)[A_LOADS]) {
-#pragma unroll
-  for (int r = 0; r < F_LOADS; ++r) {
-    const int e = tid + r * THREADS;
-    Fs[e % BK][e / BK] = f_reg[r];
-  }
-#pragma unroll
-  for (int r = 0; r < A_LOADS; ++r) {
-    const int e = tid + r * THREADS;
-    As[e / BN][e % BN] = a_reg[r];
+  for (int i = 0; i < BK * BN / 4 / THREADS; ++i) {
+    const int ch = tid + i * THREADS;
+    const int k = ch / (BN / 4), cc = ch % (BN / 4);
+    const int gk = k0 + k;
+    copy_chunk(as + k * A_ROW + cc * 16,
+               A + static_cast<long long>(gk < t.k_end ? gk : 0) * t.N,
+               t.col0 + cc * 4, t.N, gk < t.k_end, t.vec_a);
   }
 }
 
+// A thread's sources and destinations of a slab's 16-byte copies, for the
+// slabs that lie inside the split while the block's rows and columns lie
+// inside S and N and every row is 16-byte aligned (``fast``): F chunk i of
+// row tid / F_CHUNKS + i * F_ROWS, A chunk i of row tid / 32 + 8 * i.  The
+// sources advance one slab a fetch.
+template <typename TF, typename TA>
+struct Stream {
+  static constexpr int FE = 16 / sizeof(TF);
+  static constexpr int F_CHUNKS = BK / FE;      // chunks of an F row
+  static constexpr int F_ROWS = THREADS / F_CHUNKS;
+  const TF* f;
+  const TA* a;
+  long long f_step, a_step;      // elements between a thread's chunks
+  int f_dst, a_dst;              // bytes into a stage
+  bool fast;
+
+  __device__ __forceinline__ Stream(const TF* F, const TA* A, const Tile& t,
+                                    int k_begin, int tid) {
+    f = F + static_cast<long long>(t.row0 + tid / F_CHUNKS) * t.K + k_begin +
+        tid % F_CHUNKS * FE;
+    a = A + static_cast<long long>(k_begin + tid / 32) * t.N + t.col0 +
+        tid % 32 * 4;
+    f_step = static_cast<long long>(F_ROWS) * t.K;
+    a_step = 8LL * t.N;
+    f_dst = tid / F_CHUNKS * f_row<TF>() + tid % F_CHUNKS * 16;
+    a_dst = BM * f_row<TF>() + tid / 32 * A_ROW + tid % 32 * 16;
+    fast = t.vec_f && t.vec_a && t.row0 + BM <= t.S && t.col0 + BN <= t.N;
+  }
+};
+
+// Start loading the slab at k0 (the next one of ``st``) into ring stage
+// ``stage``.
+template <typename TF, typename TA>
+__device__ __forceinline__ void fetch(const TF* __restrict__ F,
+                                      const TA* __restrict__ A, const Tile& t,
+                                      Stream<TF, TA>& st, int k0,
+                                      uint8_t* stage, int tid) {
+  if (st.fast && k0 + BK <= t.k_end) {
+#pragma unroll
+    for (int i = 0; i < BM / Stream<TF, TA>::F_ROWS; ++i)
+      cp_async16(stage + st.f_dst + i * Stream<TF, TA>::F_ROWS * f_row<TF>(),
+                 st.f + i * st.f_step, true);
+#pragma unroll
+    for (int i = 0; i < BK / 8; ++i)
+      cp_async16(stage + st.a_dst + i * 8 * A_ROW, st.a + i * st.a_step,
+                 true);
+  } else {
+    fetch_edge(F, A, t, k0, stage, tid);
+  }
+  st.f += BK;
+  st.a += static_cast<long long>(BK) * t.N;
+}
+
+// The FMAs of one slab: per 4 K, 8 rows of F and 8 columns of A a K.
+template <typename TF, typename TA>
+__device__ __forceinline__ void fma_slab(const uint8_t* stage, int tx, int ty,
+                                         float (&acc)[TM][TN]) {
+  const uint8_t* fs = stage;
+  const uint8_t* as = stage + BM * f_row<TF>();
+#pragma unroll
+  for (int kg = 0; kg < BK; kg += 4) {
+    float f[TM][4];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+      ld4<TF>(fs + tile_index(ty, i) * f_row<TF>() + kg * sizeof(TF), f[i]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint8_t* ar = as + (kg + kk) * A_ROW;
+      float a[TN];
+      ld4<TA>(ar + tx * 16, a);
+      ld4<TA>(ar + 64 * 4 + tx * 16, a + 4);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j)
+          acc[i][j] = __fmaf_rn(f[i][kk], a[j], acc[i][j]);
+    }
+  }
+}
+
+// One block: output tile (blockIdx.x, blockIdx.y) over split blockIdx.z of
+// gridDim.z.  ``partial`` null: write the finished outputs; else write the
+// raw sums into partial[blockIdx.z] ([S, N] fp32).  ``vec_o``: N % 4 == 0
+// and the written array aligned for 4-element stores.
 template <typename TF, typename TA, typename TO>
-__global__ void __launch_bounds__(THREADS, 2)
-spmm_kernel(const TF* __restrict__ F, const TA* __restrict__ A,
-            const float* __restrict__ col_mask, TO* __restrict__ out,
-            int S, int K, int N, int bool_mode) {
-  __shared__ __align__(16) float Fs[2][BK][FS_LD];
-  __shared__ __align__(16) float As[2][BK][BN];
-
+__global__ void __launch_bounds__(THREADS, 1)
+spmm_fp32_kernel(const TF* __restrict__ F, const TA* __restrict__ A,
+                 const float* __restrict__ col_mask, TO* __restrict__ out,
+                 float* __restrict__ partial, int S, int K, int N,
+                 int bool_mode, int vec_f, int vec_a, int vec_o) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  constexpr int STAGE = stage_bytes<TF>();
   const int tid = threadIdx.x;
   const int tx = tid % 16;             // column lane
   const int ty = tid / 16;             // row lane
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
+
+  // this split's slabs: K's slabs shared evenly, the first ones longer
+  const int n_all = (K + BK - 1) / BK;
+  const int z = blockIdx.z, nz = gridDim.z;
+  const int base = n_all / nz, rem = n_all % nz;
+  const int n = base + (z < rem ? 1 : 0);
+  const int k_begin = (z * base + min(z, rem)) * BK;
+
+  Tile t;
+  t.S = S; t.K = K; t.N = N;
+  t.row0 = blockIdx.x * BM;
+  t.col0 = blockIdx.y * BN;
+  t.k_end = min(k_begin + n * BK, K);
+  t.vec_f = vec_f != 0;
+  t.vec_a = vec_a != 0;
 
   float acc[TM][TN];
 #pragma unroll
@@ -154,95 +395,183 @@ spmm_kernel(const TF* __restrict__ F, const TA* __restrict__ A,
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
-  float f_reg[F_LOADS];
-  float a_reg[A_LOADS];
-  load_slab(F, A, S, K, N, row0, col0, 0, tid, f_reg, a_reg);
-  store_slab(Fs[0], As[0], tid, f_reg, a_reg);
-  __syncthreads();
-
-  const int n_slabs = (K + BK - 1) / BK;
-  for (int s = 0; s < n_slabs; ++s) {
-    const int buf = s & 1;
+  Stream<TF, TA> st(F, A, t, k_begin, tid);
 #pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      const float4 f0 = *reinterpret_cast<const float4*>(&Fs[buf][k][ty * 4]);
-      const float4 f1 =
-          *reinterpret_cast<const float4*>(&Fs[buf][k][64 + ty * 4]);
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][k][tx * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[buf][k][64 + tx * 4]);
-      const float fa[TM] = {f0.x, f0.y, f0.z, f0.w, f1.x, f1.y, f1.z, f1.w};
-      const float ab[TN] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j)
-          acc[i][j] = __fmaf_rn(fa[i], ab[j], acc[i][j]);
-    }
-    if (s + 1 < n_slabs) {
-      // the other buffer was last read before the previous barrier
-      load_slab(F, A, S, K, N, row0, col0, (s + 1) * BK, tid, f_reg, a_reg);
-      store_slab(Fs[buf ^ 1], As[buf ^ 1], tid, f_reg, a_reg);
-    }
-    __syncthreads();
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n) fetch(F, A, t, st, k_begin + s * BK, smem + s * STAGE, tid);
+    cp_async_commit();
   }
+  for (int s = 0; s < n; ++s) {
+    cp_async_wait<STAGES - 2>();   // this thread's copies of slab s landed
+    __syncthreads();               // everyone's; slab s-1 is fully consumed
+    const int next = s + STAGES - 1;
+    if (next < n)
+      fetch(F, A, t, st, k_begin + next * BK, smem + (next % STAGES) * STAGE,
+            tid);
+    cp_async_commit();
+    fma_slab<TF, TA>(smem + (s % STAGES) * STAGE, tx, ty, acc);
+  }
+  cp_async_wait<0>();
 
-  // Epilogue: semiring clamp, column mask, exact conversion, masked store.
 #pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    const int gn = col0 + tile_index(tx, j);
-    if (gn >= N) continue;
-    const float cm = col_mask ? col_mask[gn] : 1.f;
+  for (int i = 0; i < TM; ++i) {
+    const int gm = t.row0 + tile_index(ty, i);
+    if (gm >= S) continue;
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int gm = row0 + tile_index(ty, i);
-      if (gm >= S) continue;
-      float v = acc[i][j];
-      if (bool_mode) v = fminf(v, 1.f);
-      out[static_cast<long long>(gm) * N + gn] = from_f32<TO>(v * cm);
+    for (int h = 0; h < 2; ++h) {
+      const int gn = t.col0 + h * 64 + tx * 4;
+      if (gn >= N) continue;
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = acc[i][h * 4 + e];
+      if (partial) {
+        store4(partial + static_cast<long long>(z) * S * N, gm, gn, N, v,
+               vec_o != 0);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          v[e] = finish(v[e], col_mask && gn + e < N ? col_mask[gn + e] : 1.f,
+                        bool_mode);
+        store4(out, gm, gn, N, v, vec_o != 0);
+      }
     }
   }
 }
+
+// out = epilogue(sum of the n_split partials, in split order).  A thread
+// takes four consecutive outputs; ``vec``: N % 4 == 0 and partial and out
+// aligned, so the four share a row and move as vectors.
+template <typename TO>
+__global__ void __launch_bounds__(FINISH_THREADS)
+spmm_fp32_finish_kernel(const float* __restrict__ partial, int n_split,
+                        const float* __restrict__ col_mask,
+                        TO* __restrict__ out, int S, int N, int bool_mode,
+                        int vec) {
+  const long long total = static_cast<long long>(S) * N;
+  const long long e0 =
+      (static_cast<long long>(blockIdx.x) * FINISH_THREADS + threadIdx.x) * 4;
+  if (e0 >= total) return;
+  if (vec) {
+    float4 s = *reinterpret_cast<const float4*>(partial + e0);
+#pragma unroll 4
+    for (int j = 1; j < n_split; ++j) {
+      const float4 p =
+          *reinterpret_cast<const float4*>(partial + j * total + e0);
+      s.x += p.x; s.y += p.y; s.z += p.z; s.w += p.w;
+    }
+    const int gn = static_cast<int>(e0 % N);
+    float v[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      v[e] = finish(v[e], col_mask ? col_mask[gn + e] : 1.f, bool_mode);
+    st4<TO>(out + e0, v);
+    return;
+  }
+  const long long e1 = e0 + 4 < total ? e0 + 4 : total;
+  for (long long e = e0; e < e1; ++e) {
+    float s = partial[e];
+#pragma unroll 4
+    for (int j = 1; j < n_split; ++j) s += partial[j * total + e];
+    const int gn = static_cast<int>(e % N);
+    out[e] = from_f32<TO>(finish(s, col_mask ? col_mask[gn] : 1.f,
+                                 bool_mode));
+  }
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// Lets the kernel use its ring (above 48 KB of shared memory).
+template <typename TF, typename TA, typename TO>
+cudaError_t set_smem() {
+  const cudaError_t err = cudaFuncSetAttribute(
+      spmm_fp32_kernel<TF, TA, TO>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<TF>());
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(spmm_fp32_kernel<TF, TA, TO>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+struct Args {
+  const void* F;
+  const void* A;
+  const float* mask;
+  void* out;
+  float* partial;
+  int S, K, N, bool_mode, n_split;
+};
 
 template <typename TF, typename TA, typename TO>
-void launch_typed(const void* F, const void* A, const float* mask, void* out,
-                  int S, int K, int N, int bool_mode, cudaStream_t stream) {
-  const dim3 grid((N + BN - 1) / BN, (S + BM - 1) / BM);
-  spmm_kernel<TF, TA, TO><<<grid, THREADS, 0, stream>>>(
-      static_cast<const TF*>(F), static_cast<const TA*>(A), mask,
-      static_cast<TO*>(out), S, K, N, bool_mode);
+int launch(const Args& a, cudaStream_t st) {
+  cudaError_t err = set_smem<TF, TA, TO>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const TF* F = static_cast<const TF*>(a.F);
+  TO* out = static_cast<TO*>(a.out);
+  const int vec_f = (sizeof(TF) == 1 ? a.K % 16 : a.K % 4) == 0 &&
+                    aligned16(F);
+  const int vec_a = a.N % 4 == 0 && aligned16(a.A);
+  const bool split = a.n_split > 1;
+  const int vec_o = a.N % 4 == 0 &&
+      (split ? aligned16(a.partial)
+             : reinterpret_cast<uintptr_t>(out) % (4 * sizeof(TO)) == 0);
+  const dim3 grid((a.S + BM - 1) / BM, (a.N + BN - 1) / BN, a.n_split);
+  spmm_fp32_kernel<TF, TA, TO><<<grid, THREADS, smem_bytes<TF>(), st>>>(
+      F, static_cast<const TA*>(a.A), a.mask, out,
+      split ? a.partial : nullptr, a.S, a.K, a.N, a.bool_mode, vec_f, vec_a,
+      vec_o);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !split) return static_cast<int>(err);
+  const long long quads = (static_cast<long long>(a.S) * a.N + 3) / 4;
+  const int vec = a.N % 4 == 0 && aligned16(a.partial) &&
+                  reinterpret_cast<uintptr_t>(out) % (4 * sizeof(TO)) == 0;
+  spmm_fp32_finish_kernel<TO>
+      <<<static_cast<unsigned>((quads + FINISH_THREADS - 1) / FINISH_THREADS),
+         FINISH_THREADS, 0, st>>>(a.partial, a.n_split, a.mask, out, a.S,
+                                  a.N, a.bool_mode, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
-template <typename TF, typename TA>
-int launch_out(const void* F, const void* A, const float* mask, void* out,
-               int o_dt, int S, int K, int N, int bool_mode,
-               cudaStream_t stream) {
+// Resident blocks an SM of the kernel for these types.
+template <typename TF, typename TA, typename TO>
+int blocks_per_sm(int* blocks) {
+  cudaError_t err = set_smem<TF, TA, TO>();
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, spmm_fp32_kernel<TF, TA, TO>, THREADS, smem_bytes<TF>());
+  return static_cast<int>(err);
+}
+
+template <typename T> struct Type { using type = T; };
+
+// Calls fn(Type<TF>, Type<TA>, Type<TO>) for the dtype codes: F float32
+// with A float32 or int32, or F int32 or uint8 with A float32; out float32,
+// int32 or uint8.  -1 for any other combination.
+template <typename TF, typename TA, typename Fn>
+int with_out(int o_dt, Fn&& fn) {
   switch (o_dt) {
-    case DT_FLOAT32:
-      launch_typed<TF, TA, float>(F, A, mask, out, S, K, N, bool_mode, stream);
-      return 0;
-    case DT_INT32:
-      launch_typed<TF, TA, int32_t>(F, A, mask, out, S, K, N, bool_mode, stream);
-      return 0;
-    case DT_UINT8:
-      launch_typed<TF, TA, uint8_t>(F, A, mask, out, S, K, N, bool_mode, stream);
-      return 0;
+    case DT_FLOAT32: return fn(Type<TF>(), Type<TA>(), Type<float>());
+    case DT_INT32: return fn(Type<TF>(), Type<TA>(), Type<int32_t>());
+    case DT_UINT8: return fn(Type<TF>(), Type<TA>(), Type<uint8_t>());
   }
   return -1;
 }
 
-template <typename TF>
-int launch_a(const void* F, const void* A, int a_dt, const float* mask,
-             void* out, int o_dt, int S, int K, int N, int bool_mode,
-             cudaStream_t stream) {
-  switch (a_dt) {
-    case DT_INT32:
-      return launch_out<TF, int32_t>(F, A, mask, out, o_dt, S, K, N, bool_mode, stream);
-    case DT_FLOAT32:
-      return launch_out<TF, float>(F, A, mask, out, o_dt, S, K, N, bool_mode, stream);
-  }
+template <typename Fn>
+int with_types(int f_dt, int a_dt, int o_dt, Fn&& fn) {
+  if (f_dt == DT_FLOAT32 && a_dt == DT_FLOAT32)
+    return with_out<float, float>(o_dt, fn);
+  if (f_dt == DT_FLOAT32 && a_dt == DT_INT32)
+    return with_out<float, int32_t>(o_dt, fn);
+  if (f_dt == DT_INT32 && a_dt == DT_FLOAT32)
+    return with_out<int32_t, float>(o_dt, fn);
+  if (f_dt == DT_UINT8 && a_dt == DT_FLOAT32)
+    return with_out<uint8_t, float>(o_dt, fn);
   return -1;
 }
+
+}  // namespace f32
 
 
 // ---------------------------------------------------------------------------
@@ -282,24 +611,6 @@ __device__ __forceinline__ int swz(int r, int c) {
 // threads of a conversion phase read on 8 distinct bank groups.
 __device__ __forceinline__ int a_raw_off(int k, int c) {
   return k * (BN * 4) + ((c ^ ((k >> 2) & 7)) << 4);
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte asynchronous copy; zero-fills the destination when !pred.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
-                   "r"(smem_addr(dst)), "l"(src), "r"(pred ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
@@ -375,25 +686,6 @@ struct Ctx {
   int S, K, N, row0, col0, tid, warp_m, warp_n, lane, n_slabs;
   bool vec_f, vec_a, f_u8;
 };
-
-// Copy one 16-byte chunk of a row (elements col.. of ``limit``), as
-// cp.async when the row is aligned (``vec``: a chunk lies wholly in or out
-// of range) or element by element otherwise; zeros out of range.
-template <typename T>
-__device__ __forceinline__ void copy_chunk(uint8_t* dst, const T* row,
-                                           int col, int limit, bool row_ok,
-                                           bool vec) {
-  constexpr int E = 16 / sizeof(T);
-  if (vec) {
-    const bool ok = row_ok && col < limit;
-    cp_async16(dst, ok ? row + col : row, ok);
-    return;
-  }
-  T* d = reinterpret_cast<T*>(dst);
-#pragma unroll
-  for (int e = 0; e < E; ++e)
-    d[e] = row_ok && col + e < limit ? row[col + e] : T(0);
-}
 
 // Start loading the slab at k0 into ring stage ``raw``.
 __device__ __forceinline__ void fetch_slab(const uint8_t* __restrict__ F8,
@@ -729,29 +1021,43 @@ extern "C" int block_spmm_u8_launch(const void* F, int f_dt, const void* A,
 }
 
 // A float32 operand (F int32, uint8 or float32; A int32 or float32, not
-// both integer): the fp32 CUDA-core kernel.
+// both integer): the fp32 CUDA-core kernel over ``n_split`` ranges of K.
+// With n_split > 1, ``partial`` is an fp32 workspace of n_split * S * N
+// elements that must outlive the launch on ``stream``.
 extern "C" int block_spmm_fp32_launch(const void* F, int f_dt, const void* A,
                                       int a_dt, const void* col_mask,
                                       void* out, int o_dt, int S, int K,
-                                      int N, int bool_mode, void* stream) {
+                                      int N, int bool_mode, int n_split,
+                                      void* partial, void* stream) {
   if (f_dt != DT_FLOAT32 && a_dt != DT_FLOAT32) return -1;
+  if (n_split < 1 || n_split > 65535 || (n_split > 1 && !partial)) return -1;
   if (S == 0 || N == 0) return 0;
+  f32::Args a;
+  a.F = F;
+  a.A = A;
+  a.mask = static_cast<const float*>(col_mask);
+  a.out = out;
+  a.partial = static_cast<float*>(partial);
+  a.S = S;
+  a.K = K;
+  a.N = N;
+  a.bool_mode = bool_mode;
+  a.n_split = n_split;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* mask = static_cast<const float*>(col_mask);
-  int rc = -1;
-  switch (f_dt) {
-    case DT_INT32:
-      rc = launch_out<int32_t, float>(F, A, mask, out, o_dt, S, K, N,
-                                      bool_mode, st);
-      break;
-    case DT_UINT8:
-      rc = launch_out<uint8_t, float>(F, A, mask, out, o_dt, S, K, N,
-                                      bool_mode, st);
-      break;
-    case DT_FLOAT32:
-      rc = launch_a<float>(F, A, a_dt, mask, out, o_dt, S, K, N, bool_mode, st);
-      break;
-  }
-  if (rc != 0) return rc;
-  return static_cast<int>(cudaGetLastError());
+  return f32::with_types(f_dt, a_dt, o_dt, [&](auto f, auto x, auto o) {
+    return f32::launch<typename decltype(f)::type, typename decltype(x)::type,
+                       typename decltype(o)::type>(a, st);
+  });
+}
+
+// Blocks of the fp32 kernel for these dtype codes that one SM holds at
+// once, into ``*blocks``; returns the CUDA error code, or -1 for
+// unsupported codes.
+extern "C" int block_spmm_fp32_blocks_per_sm(int f_dt, int a_dt, int o_dt,
+                                             int* blocks) {
+  return f32::with_types(f_dt, a_dt, o_dt, [&](auto f, auto x, auto o) {
+    return f32::blocks_per_sm<typename decltype(f)::type,
+                              typename decltype(x)::type,
+                              typename decltype(o)::type>(blocks);
+  });
 }

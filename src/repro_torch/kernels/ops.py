@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -28,6 +28,8 @@ _A_TYPES = (torch.int32, torch.float32)
 _OUT_TYPES = (torch.float32, torch.int32, torch.uint8)
 # output rows, output columns and K slab of a block of the u8 kernel
 SPMM_TILE = (256, 128, 64)
+# the same of the fp32 kernel
+SPMM_FP32_TILE = (128, 128, 32)
 
 
 def _stream(dev: torch.device) -> int:
@@ -36,6 +38,11 @@ def _stream(dev: torch.device) -> int:
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: Optional[int]) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.lru_cache(maxsize=None)
@@ -51,11 +58,13 @@ def _spmm_fns():
     f32 = lib.block_spmm_fp32_launch
     f32.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_int, ctypes.c_void_p]
-    for fn in (u8, f32):
+                    *[ctypes.c_int] * 6, ctypes.c_void_p, ctypes.c_void_p]
+    occ = lib.block_spmm_fp32_blocks_per_sm
+    occ.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.POINTER(ctypes.c_int)]
+    for fn in (u8, f32, occ):
         fn.restype = ctypes.c_int
-    return {"tc": u8, "fp32": f32}
+    return {"tc": u8, "fp32": f32, "fp32_blocks_per_sm": occ}
 
 
 _slow_slabs: Dict[torch.device, torch.Tensor] = {}
@@ -76,6 +85,95 @@ def spmm_slow_slabs(device) -> torch.Tensor:
     return counter
 
 
+class Fp32Plan(NamedTuple):
+    """How ``block_spmm``'s fp32 kernel covers one product."""
+    n_split: int                   #: ranges of K (1: no partials)
+    grid: Tuple[int, int, int]     #: (row tiles, column tiles, n_split)
+    slots: int                     #: blocks the card holds at once
+    waves: int                     #: ceil(blocks / slots)
+    workspace: int                 #: fp32 elements of the partials
+
+
+def spmm_fp32_k_ranges(K: int, n_split: int) -> List[Tuple[int, int]]:
+    """The ``[k0, k1)`` of each split, in order: K's 32-deep slabs shared
+    evenly, the first ``n_slabs % n_split`` splits one slab longer (the
+    kernel's own rule, ``spmm_fp32_kernel``)."""
+    bk = SPMM_FP32_TILE[2]
+    n_slabs = _cdiv(K, bk)
+    base, rem = divmod(n_slabs, n_split)
+    ranges = []
+    for z in range(n_split):
+        k0 = (z * base + min(z, rem)) * bk
+        ranges.append((k0, min(k0 + (base + (z < rem)) * bk, K)))
+    return ranges
+
+
+@functools.lru_cache(maxsize=1024)
+def spmm_fp32_plan(S: int, K: int, N: int, n_sms: int,
+                   blocks_per_sm: int) -> Fp32Plan:
+    """Split-K plan of the fp32 kernel on a card of ``n_sms`` SMs that
+    each hold ``blocks_per_sm`` of its blocks.
+
+    When the 128 x 128 output tiles alone fill every slot, one split: the
+    kernel writes the output.  Otherwise the split count, at most one per
+    two 32-deep slabs, minimises an estimate in slab times of one block
+    (128 x 128 x 32 FMAs): ``waves * (longest split + 1)``, the one for a
+    slab in flight before the first, plus for a split
+    ``1 + n_split * S * N / 2**21``, the pass that adds the partials
+    (taken as 2^21 fp32 elements a slab time); the fewest splits on a tie.
+    With the kernel's one block an SM on 132 SMs, 105 x 5 blocks fill four
+    waves (99.4%) at ROOT_POST's 13,440 x 13,440 x 128 and 16 x 8 one wave
+    (97%) at KNOWS2's 2,048 x 2,048 x 128, the fastest of the split counts
+    timed there (``tools/spmm_fp32_ab.py --sweep``).  Each split then
+    writes an fp32 partial ``[S, N]`` into a workspace of
+    ``n_split * S * N`` elements.
+    """
+    bm, bn, bk = SPMM_FP32_TILE
+    tiles = _cdiv(S, bm) * _cdiv(N, bn)
+    slots = n_sms * blocks_per_sm
+    n_slabs = _cdiv(K, bk)
+
+    def cost(s: int) -> float:
+        finish = 1 + s * S * N / 2 ** 21 if s > 1 else 0
+        return _cdiv(tiles * s, slots) * (_cdiv(n_slabs, s) + 1) + finish
+
+    n_split = 1
+    if 0 < tiles < slots:
+        n_split = min(range(1, min(n_slabs // 2, slots) + 1), key=cost,
+                      default=1)
+    return Fp32Plan(n_split, (_cdiv(S, bm), _cdiv(N, bn), n_split), slots,
+                    _cdiv(tiles * n_split, slots),
+                    n_split * S * N if n_split > 1 else 0)
+
+
+@functools.lru_cache(maxsize=None)
+def spmm_fp32_blocks_per_sm(index: Optional[int], f_dtype: torch.dtype,
+                            a_dtype: torch.dtype,
+                            out_dtype: torch.dtype) -> int:
+    """Blocks of the fp32 kernel one SM of card ``index`` holds at once
+    (the CUDA occupancy calculator, for these operand types)."""
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(index):      # the query reads the current card
+        rc = _spmm_fns()["fp32_blocks_per_sm"](
+            _DT[f_dtype], _DT[a_dtype], _DT[out_dtype],
+            ctypes.byref(blocks))
+    if rc != 0 or blocks.value < 1:
+        raise RuntimeError(f"block_spmm fp32 occupancy query failed: CUDA "
+                           f"error {rc}, {blocks.value} blocks an SM")
+    return blocks.value
+
+
+def spmm_fp32_launch_plan(F: torch.Tensor, A: torch.Tensor,
+                          out_dtype: torch.dtype = torch.float32
+                          ) -> Fp32Plan:
+    """The plan ``block_spmm`` takes for CUDA operands on its fp32 route."""
+    dev = F.device
+    f_dtype = torch.uint8 if F.dtype == torch.bool else F.dtype
+    return spmm_fp32_plan(
+        F.shape[0], F.shape[1], A.shape[1], _sm_count(dev.index),
+        spmm_fp32_blocks_per_sm(dev.index, f_dtype, A.dtype, out_dtype))
+
+
 def block_spmm(F: torch.Tensor, A: torch.Tensor,
                col_mask: Optional[torch.Tensor] = None, *,
                counting: bool = True,
@@ -87,8 +185,13 @@ def block_spmm(F: torch.Tensor, A: torch.Tensor,
     [S, N] in ``out_dtype`` (float32, int32, or uint8 for the bool semiring).
     Integer outputs are exact while walk counts stay below 2^24.  Integer
     F and A take the u8 tensor-core route (exact; a K slab holding a value
-    outside 0..255 runs on the CUDA cores, see ``spmm_slow_slabs``); a
-    float32 operand takes the fp32 CUDA-core route.
+    outside 0..255 runs on the CUDA cores, see ``spmm_slow_slabs``).  A
+    float32 operand takes the fp32 route: IEEE fp32 products on the CUDA
+    cores (no TF32), K split over the card's SMs when the output tiles
+    are few (``spmm_fp32_plan``), each split's fp32 partial written into a
+    workspace allocated here on the caller's stream and added in split
+    order by a second kernel, so two launches give the same bits; the
+    sum's order, and only that, differs from the plain version's.
     """
     if F.dim() != 2 or A.dim() != 2 or F.shape[1] != A.shape[0]:
         raise ValueError(f"block_spmm shapes F{tuple(F.shape)} @ "
@@ -139,8 +242,15 @@ def block_spmm(F: torch.Tensor, A: torch.Tensor,
             flags.data_ptr() if flags is not None else None,
             spmm_slow_slabs(dev).data_ptr(), _stream(dev))
     else:
+        plan = spmm_fp32_launch_plan(F, A, out_dtype)
+        # the partials live on the caller's stream until the second kernel,
+        # launched on it in the same call, has read them
+        ws = (torch.empty(plan.workspace, dtype=torch.float32, device=dev)
+              if plan.n_split > 1 else None)
         rc = _spmm_fns()["fp32"](F.data_ptr(), _DT[F.dtype], A.data_ptr(),
-                                 _DT[A.dtype], *common, _stream(dev))
+                                 _DT[A.dtype], *common, plan.n_split,
+                                 ws.data_ptr() if ws is not None else None,
+                                 _stream(dev))
     if rc != 0:
         raise RuntimeError(f"block_spmm {route} launch failed: CUDA error "
                            f"{rc}")
@@ -288,11 +398,6 @@ def _flash_fns():
     for fn in (f32, tc):
         fn.restype = ctypes.c_int
     return {"tc": tc, "fp32": f32}
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def attention_splits(B: int, Hq: int, Sq: int, Sk: int, D: int,

@@ -253,11 +253,19 @@ def test_cuda_u8_route_exact(cuda_device, case, masked):
     assert int(slow) == {"small": 0, "above": 8, "mixed": 2}[case]
 
 
+# fp32 route shapes: one split by the plan, then S <= 128 with K >= 8,192
+# (split many ways), ragged N, and K % 4 != 0 as well
+FP32_SHAPES = [(100, 200, 150), (64, 8192, 128), (100, 9000, 150),
+               (37, 8195, 61)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("semiring", ["count", "bool"])
-def test_cuda_fp32_route(cuda_device, semiring):
-    """A float32 operand takes the fp32 CUDA-core route."""
-    F, A, mask = _inputs((100, 200, 150), 26)
+@pytest.mark.parametrize("shape", FP32_SHAPES)
+def test_cuda_fp32_route(cuda_device, semiring, shape):
+    """A float32 operand takes the fp32 CUDA-core route, split over K where
+    the plan says so, exact on integer values."""
+    F, A, mask = _inputs(shape, 26)
     tF, tA, tm = (torch.from_numpy(x).to(cuda_device, torch.float32)
                   for x in (F, A, mask))
     before = p_ops.block_spmm.launches_by_route["fp32"]
@@ -266,6 +274,25 @@ def test_cuda_fp32_route(cuda_device, semiring):
     assert p_ops.block_spmm.launches_by_route["fp32"] == before + 1
     assert torch.equal(got, p_ref.block_spmm_ref(tF, tA, tm,
                                                  semiring=semiring))
+    if shape[1] >= 8192:
+        assert p_ops.spmm_fp32_launch_plan(tF, tA).n_split > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FP32_SHAPES)
+def test_cuda_fp32_route_gives_the_same_bits_twice(cuda_device, shape):
+    """The partials are added in split order, with no float atomics: two
+    launches on random fp32 operands agree bit for bit."""
+    S, K, N = shape
+    rng = np.random.default_rng(27)
+    tF = torch.from_numpy(rng.random((S, K), dtype=np.float32)).to(
+        cuda_device)
+    tA = torch.from_numpy(rng.random((K, N), dtype=np.float32)).to(
+        cuda_device)
+    first = p_ops.block_spmm(tF, tA)
+    assert torch.equal(first, p_ops.block_spmm(tF, tA))
+    torch.testing.assert_close(first, p_ref.block_spmm_ref(tF, tA),
+                               rtol=2 * (K + 1) * 2.0 ** -24, atol=1e-6)
 
 
 @pytest.mark.cuda
