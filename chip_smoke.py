@@ -39,10 +39,12 @@ Phases:
      shapes, checked against the scatter formulation;
   6. attention: ``flash_attention`` against its plain version at the
      reference's test shapes (fp32), at decode shapes that split over keys
-     (bf16 and fp32) and at starcoder2-3b and gemma-2b shapes (bf16), timed
-     beside ``scaled_dot_product_attention``, the fp32 route at one unit
-     shape beside its bound and SDPA on fp32 inputs; then its main path,
-     the three model shapes once more;
+     (bf16 and fp32, two fp32 launches bit for bit) and at starcoder2-3b
+     and gemma-2b shapes (bf16), timed beside
+     ``scaled_dot_product_attention``, the fp32 route at one unit shape and
+     at starcoder2-3b's chunked decode and prefill beside its bound, its
+     planned split and SDPA on fp32 inputs; then its main path, the three
+     model shapes once more;
   7. serving, after phase 4's sessions are freed: (a) SNB through
      ``GraphSession.serve`` with the workload driver's serve script (each
      read unbound and for 16 clients bound to one start node, a fence a
@@ -220,9 +222,11 @@ L2_FLUSH_BYTES = 128 << 20          # 2.5 times the H100's 50 MB L2
 ATTN_UNIT_SHAPES = [(1, 2, 2, 128, 128, 64), (2, 4, 4, 256, 256, 128),
                     (1, 1, 1, 384, 384, 128), (1, 4, 2, 100, 173, 64),
                     (1, 6, 2, 128, 4096, 128), (1, 4, 1, 64, 300, 256)]
-# decode shapes whose few query blocks make the bf16 kernel split over
-# keys, with a shorter last chunk (11 chunks of 6, 6, ..., 4 kv tiles; 32
-# chunks of 3, ..., 1 tiles of 32 keys, the last one ragged)
+# decode shapes whose few query blocks make both kernels split over keys,
+# with a shorter last chunk: bf16 11 chunks of 6, 6, ..., 4 kv tiles of 64
+# keys and 32 chunks of 3, ..., 1 tiles of 32 keys, the last one ragged;
+# fp32 (32-key tiles, its occupancy on 132 SMs) 11 chunks of 12, ..., 8
+# and 16 chunks of 6, ..., 4
 ATTN_SPLIT_SHAPES = [(1, 24, 2, 1, 4096, 128), (1, 8, 1, 37, 3001, 256)]
 # the fp32 route's timed shape, one of the unit shapes, causal
 ATTN_FP32_TIMED = (2, 4, 4, 256, 256, 128)
@@ -231,6 +235,17 @@ ATTN_MODEL_SHAPES = {
     "starcoder2-3b chunked decode": (1, 24, 2, 128, 4096, 128),
     "gemma-2b prefill": (1, 8, 1, 4096, 4096, 256),
 }
+# the fp32 route's timed shapes, causal: the unit shape above, then
+# starcoder2-3b's chunked decode (split over keys) and prefill (not split)
+ATTN_FP32_SHAPES = {
+    "timed": ATTN_FP32_TIMED,
+    "starcoder2-3b chunked decode":
+        ATTN_MODEL_SHAPES["starcoder2-3b chunked decode"],
+    "starcoder2-3b prefill": ATTN_MODEL_SHAPES["starcoder2-3b prefill"],
+}
+# the fp32 kernel's device work a call: the attention kernel and, split
+# over keys, the merge of its chunks
+ATTN_FP32_KERNELS = ("flash_fp32_kernel", "merge_kernel")
 # (rtol, atol).  Kernel and plain version both compute in fp32 and round
 # once to the output type, so a bf16 output may differ by one bf16 step
 # (2^-8 to 2^-7 of its magnitude) and no more; a diagonal shifted by one
@@ -1762,6 +1777,98 @@ def attn_bound_ms(q, k, causal: bool) -> tuple:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def attn_compare(ops, ref, q, k, v, causal: bool, what: str) -> tuple:
+    """``flash_attention`` held to its plain version within ``ATTN_TOL``:
+    the output and the largest absolute difference."""
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    rtol, atol = ATTN_TOL[q.dtype]
+    g, w = got.to(torch.float32), want.to(torch.float32)
+    check(torch.allclose(g, w, rtol=rtol, atol=atol),
+          f"flash_attention != plain at {what}")
+    return got, float((g - w).abs().max())
+
+
+def device_ms_split(calls: dict, groups: dict, rest: str,
+                    iters: int) -> tuple:
+    """Mean device ms a call of each of ``calls``, from one profiler trace
+    of ``iters`` calls of each in turn, and the names of its device ops:
+    an op whose name holds a substring of ``groups[key]`` counts for
+    ``key``, any other op for ``rest``.  Each op name counts its mean time
+    a launch times its launches a call, so a trace that dropped a few
+    launches still gives the call's time."""
+    from torch.profiler import ProfilerActivity, profile
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn in calls.values():
+            for _ in range(iters):
+                fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    ms, names = dict.fromkeys(calls, 0.0), {key: [] for key in calls}
+    for name, us in by_name.items():
+        key = next((k for k, subs in groups.items()
+                    if any(sub in name for sub in subs)), rest)
+        ms[key] += sum(us) / len(us) * max(1, round(len(us) / iters)) / 1e3
+        names[key].append(name[:96])
+    check(all(names.values()), f"the profiler saw no device op of "
+                               f"{[k for k, v in names.items() if not v]}")
+    return ms, {key: sorted(v) for key, v in names.items()}
+
+
+def attn_fp32_record(ops, ref, q, k, v, what: str) -> dict:
+    """The fp32 route at one causal shape: held to the plain version within
+    ``ATTN_TOL`` and to a second launch bit for bit, its planned split and
+    the kernel's blocks an SM, then timed per call (CUDA events, host
+    included) and on the device (one profiler trace: the kernel and the
+    merge) beside its bound, the plain version and SDPA on fp32 (TF32 off)
+    on the same inputs.  SDPA takes grouped KV heads on its math backend
+    only, so with Hkv < Hq it is also timed on K and V repeated to Hq heads
+    beforehand (``library_repeat_kv``: its CUTLASS fp32 kernel).  Each SDPA
+    call is held to the kernel's output within 1e-4 first."""
+    got, err = attn_compare(ops, ref, q, k, v, True, what)
+    check(torch.equal(got, ops.flash_attention(q, k, v)),
+          f"two fp32 flash_attention launches differ at {what}")
+    big = q.shape[2] * k.shape[2] * q.shape[1] > 1 << 26
+    iters = 10 if big else 20
+    calls = {"kernel": lambda: ops.flash_attention(q, k, v),
+             "library": lambda: sdpa(q, k, v, True)}
+    groups = {"kernel": ATTN_FP32_KERNELS}
+    if k.shape[1] != q.shape[1]:
+        kr, vr = (x.repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+                  for x in (k, v))
+        calls["library_repeat_kv"] = lambda: sdpa(q, kr, vr, True)
+        groups["library_repeat_kv"] = ("fmha_cutlassF",)
+    rec = {"shape": [q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                     k.shape[2], q.shape[3]],
+           "n_split_tiles": list(ops.attention_launch_splits(q, k)),
+           "blocks_per_sm": ops.attention_fp32_blocks_per_sm(
+               q.device.index, q.shape[3]),
+           "max_abs_err": err,
+           **dict(zip(("bound_ms", "bound_by"), attn_bound_ms(q, k, True))),
+           "plain_ms": cuda_ms(lambda: ref.flash_attention_ref(q, k, v),
+                               2 if big else 5)}
+    for key, fn in calls.items():
+        if key != "kernel":
+            check(torch.allclose(fn(), got, rtol=1e-4, atol=1e-4),
+                  f"scaled_dot_product_attention ({key}) disagrees in fp32 "
+                  f"at {what}")
+        rec[("" if key == "kernel" else key + "_") + "ms"] = cuda_ms(fn,
+                                                                   iters)
+    dev, names = device_ms_split(calls, groups, "library", iters)
+    for key in calls:
+        prefix = "" if key == "kernel" else key + "_"
+        rec[prefix + "device_ms"] = dev[key]
+        if key != "kernel":
+            rec[key] = names[key]
+    return rec
+
+
 def attention_phase(ops, ref) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1773,13 +1880,7 @@ def attention_phase(ops, ref) -> dict:
         return q.to(dtype), k.to(dtype), v.to(dtype)
 
     def compare(q, k, v, causal, what):
-        got = ops.flash_attention(q, k, v, causal=causal)
-        want = ref.flash_attention_ref(q, k, v, causal=causal)
-        rtol, atol = ATTN_TOL[q.dtype]
-        g, w = got.to(torch.float32), want.to(torch.float32)
-        check(torch.allclose(g, w, rtol=rtol, atol=atol),
-              f"flash_attention != plain at {what}")
-        return got, float((g - w).abs().max())
+        return attn_compare(ops, ref, q, k, v, causal, what)
 
     max_err = 0.0
     for shape in ATTN_UNIT_SHAPES:
@@ -1790,40 +1891,37 @@ def attention_phase(ops, ref) -> dict:
     log(f"phase 6: unit shapes within (rtol, atol) "
         f"{ATTN_TOL[torch.float32]} in fp32 ({len(ATTN_UNIT_SHAPES) * 2} "
         f"cases)")
-    q, k, v = qkv(*ATTN_FP32_TIMED, torch.float32, 0.5)
-    fp32_rec = {"shape": list(ATTN_FP32_TIMED),
-                "max_abs_err": compare(q, k, v, True, "fp32 timed shape")[1],
-                **dict(zip(("bound_ms", "bound_by"),
-                           attn_bound_ms(q, k, True))),
-                "ms": cuda_ms(lambda: ops.flash_attention(q, k, v), 20),
-                "plain_ms": cuda_ms(
-                    lambda: ref.flash_attention_ref(q, k, v), 5),
-                "library_ms": cuda_ms(lambda: sdpa(q, k, v, True), 20),
-                "library": sdpa_kernels(lambda: sdpa(q, k, v, True)),
-                "device_ms": device_ms(lambda: ops.flash_attention(q, k, v),
-                                       "flash_kernel", flush=False,
-                                       per_launch=True),
-                "library_device_ms": device_ms(lambda: sdpa(q, k, v, True),
-                                               flush=False, per_launch=True)}
-    log(f"phase 6: fp32 route (TF32 off) {json.dumps(fp32_rec)}")
+    fp32_rec = {}
+    for name, shape in ATTN_FP32_SHAPES.items():
+        q, k, v = qkv(*shape, torch.float32, 0.5)
+        fp32_rec[name] = attn_fp32_record(ops, ref, q, k, v, f"fp32 {name}")
+        max_err = max(max_err, fp32_rec[name]["max_abs_err"])
+        log(f"phase 6: fp32 route (TF32 off) at {name} "
+            f"{json.dumps(fp32_rec[name])}")
+        del q, k, v
+    splits = {}
     for shape in ATTN_SPLIT_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             for causal in (True, False):
                 q, k, v = qkv(*shape, dtype, 0.5)
                 route = "tc" if dtype == torch.bfloat16 else "fp32"
+                splits[f"{route} {shape}"] = ops.attention_launch_splits(q, k)
+                check(splits[f"{route} {shape}"][0] > 1,
+                      f"flash_attention {route} did not split at {shape}")
                 before = ops.flash_attention.launches_by_route[route]
-                max_err = max(max_err, compare(
-                    q, k, v, causal, f"{shape} {dtype} causal={causal}")[1])
+                got, err = compare(q, k, v, causal,
+                                   f"{shape} {dtype} causal={causal}")
+                max_err = max(max_err, err)
                 check(ops.flash_attention.launches_by_route[route]
                       == before + 1, f"flash_attention {dtype} left the "
                                      f"{route} route")
-    splits = {str(s): ops.attention_splits(
-        s[0], s[1], s[3], s[4], s[5],
-        torch.cuda.get_device_properties(0).multi_processor_count)
-        for s in ATTN_SPLIT_SHAPES}
+                if route == "fp32":
+                    check(torch.equal(got, ops.flash_attention(
+                        q, k, v, causal=causal)), f"two fp32 launches "
+                          f"differ at {shape} causal={causal}")
     log(f"phase 6: split-KV shapes within tolerance in bf16 and fp32 "
-        f"({len(ATTN_SPLIT_SHAPES) * 4} cases); (n_split, kv tiles per "
-        f"chunk) {json.dumps(splits)}")
+        f"({len(ATTN_SPLIT_SHAPES) * 4} cases, fp32 twice bit for bit); "
+        f"(n_split, kv tiles per chunk) {json.dumps(splits)}")
 
     models, records = {}, {}
     for name, (B, Hq, Hkv, Sq, Sk, D) in ATTN_MODEL_SHAPES.items():

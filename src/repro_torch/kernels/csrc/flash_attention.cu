@@ -15,10 +15,18 @@
 //
 // Bound.  4 * D FLOP per visible (query, key) pair against q, k, v and o
 // moved once: at the model shapes (S = 4096, D = 128 or 256) the work is
-// bound by operations, on the bf16 tensor cores (989 TFLOP/s); a chunked
-// decode (Sq = 128) is bound by the bytes of K and V.
+// bound by operations, on the bf16 tensor cores (989 TFLOP/s) or the fp32
+// CUDA cores (67 TFLOP/s); a chunked decode (Sq = 128) in bf16 is bound by
+// the bytes of K and V.
 //
-// Two routes, chosen by the caller's dtype (ops.py counts each):
+// Two routes, chosen by the caller's dtype (ops.py counts each).  Both
+// split a block's kv tiles over several blocks when the query blocks are
+// too few to fill the card (decode): the caller (ops.attention_splits)
+// cuts them into n_split chunks of tiles_per_split tiles, each chunk writes
+// its unnormalised fp32 accumulator and its rows' m and l to a workspace,
+// and merge_kernel combines the chunks by log-sum-exp, in chunk order, into
+// the output type.  A chunk that sees no key of a row leaves m = -1e30 and
+// l = 0 for it, which the merge weighs by 0.
 //
 // bf16 -> the tensor-core kernel (flash_tc_kernel), FlashAttention-2 shaped.
 //   One 128-thread block owns one (batch, query head, 64-row query tile);
@@ -41,25 +49,48 @@
 //   about 16 bits and v is exact in bf16.  This costs 1.5x the tensor-core
 //   work of plain FlashAttention-2.
 //
-//   Split-KV.  When B * Hq * ceil(Sq / 64) blocks would leave the SMs idle
-//   (decode), the caller splits each block's kv tiles into n_split chunks
-//   of tiles_per_split tiles (ops.attention_splits).  Each chunk writes its
-//   unnormalised fp32 accumulator and its rows' m and l to a workspace, and
-//   merge_kernel combines the chunks by log-sum-exp and casts to bf16.  A
-//   chunk that sees no key of a row leaves m = -1e30 and l = 0 for it,
-//   which the merge weighs by 0.
-//
-// fp32 -> the CUDA-core kernel (flash_kernel), unchanged from the first
-//   port: every product and sum is IEEE fp32 FMA (expf, no fast math), so
-//   fp32 inputs keep fp32 accuracy, which TF32 tensor cores would not.  One
-//   256-thread block owns one (batch, query head, 64-row query tile); Q is
-//   staged once, transposed, and one shared buffer holds each tile's K
-//   (transposed) and then its V; thread (ty, tx) of a 16 x 16 grid owns
-//   query rows 4ty..4ty+3 and reduces a row over its half-warp.
+// fp32 -> the CUDA-core kernel (f32::flash_fp32_kernel).  Every product and
+//   sum is IEEE fp32 FMA (__fmaf_rn, expf, no fast math), so fp32 inputs
+//   keep fp32 accuracy, which TF32 tensor cores would not.  It is bound by
+//   the 67 TFLOP/s of the CUDA cores, so every SM must be busy and nearly
+//   every issued instruction an FMA:
+//   - Split over keys.  At a decode (Sq = 128: 48 blocks of 64 rows for
+//     starcoder2-3b) or a short sequence the query blocks leave most SMs
+//     idle, so the chunks above fill the card: the caller plans as many
+//     as fit one wave of the SM count times this kernel's occupancy
+//     (flash_attention_fp32_blocks_per_sm), since a partial second wave
+//     costs as much as the first.
+//   - An asynchronous ring.  Q is staged once; K and V go into separate
+//     row-major buffers of two stages each, rows padded by 16 bytes, filled
+//     by 16-byte cp.async.  The next tile's K is in flight from the top of
+//     a tile and its V from the middle, each a commit group of its own, so
+//     the copies overlap Q K^T, the softmax and P V; two barriers a tile.
+//   - 4 x 4 register micro-tiles read by LDS.128 without bank conflicts.
+//     Thread (rg, tx) owns query rows rg + 16i (i < 4) and keys tx + 8j
+//     (j < 4) of a 32-key tile (128 threads, 8 key lanes a row group).
+//     Per 4 d it reads its 4 Q rows (4 consecutive rows a warp, one
+//     address each per bank group) and its 4 K rows (8 consecutive rows,
+//     D + 4 floats apart, so a warp's 8 addresses meet 8 bank groups) as
+//     16-byte vectors for 64 FMAs.  P goes to a tile Pt[key][row] that
+//     the writing warp alone reads; P V reads 4 rows of Pt and D/32
+//     vectors of V per key for D/2 FMAs, into 4 x D/8 accumulators.  A
+//     row's max is reduced over its 8 lanes each tile; l stays a per-lane
+//     partial until the end.  At D = 256, 4 x 32 accumulators would not
+//     fit beside the scores, so 256 threads take 16 key lanes (2 keys a
+//     thread, 4 x 16 accumulators).
+//   - Occupancy.  64 x 32 tiles keep 110 KB of shared memory a block at
+//     D = 128 (Q 33.8 KB, two K and two V stages 67.6 KB, Pt 8.7 KB), so
+//     two blocks share an SM; D = 256 takes 208 KB, one block; D = 64
+//     61 KB, three.
+//   At starcoder2-3b's prefill this reaches half the fp32 peak on an H100:
+//   about four issued instructions in five are FMAs (the rest shared
+//   loads, the softmax, copies and barriers), and the 8 warps an SM leave
+//   the rest of the gap as stalls.
 //
 // Both kernels visit query tiles from the last to the first, so under a
-// causal mask the longest blocks start first.  wgmma, TMA and one block
-// serving all query heads of a KV head are later work.
+// causal mask the longest blocks start first.  wgmma, TMA, one block
+// serving all query heads of a KV head, and an error-free split of fp32
+// over the tensor cores (3xTF32) are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,217 +99,6 @@
 #include <cmath>
 
 namespace {
-
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // keys per tile
-constexpr int THREADS = 256;  // 16 x 16 thread grid
-constexpr int LDT = 68;       // leading dim of the transposed tiles: 16-byte
-                              // rows, and a transposing store 4-way at most
-constexpr float MASKED = -1e30f;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-
-// Max and sum over the 16 lanes that share a query row (one half-warp).
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-template <int D>
-constexpr int smem_floats() {
-  return 2 * D * LDT + BK * LDT;   // Qt, the K/V buffer, Pt
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS, D <= 128 ? 2 : 1)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int Hq, int Hkv,
-             int Sq, int Sk, int causal, float scale) {
-  static_assert(D % 64 == 0 && D <= 256, "head_dim must be 64, 128 or 256");
-  static_assert(D * LDT >= BK * D, "the K/V buffer must hold a V tile");
-  constexpr int NC = D / 16;   // output columns per thread
-
-  extern __shared__ __align__(16) float smem[];
-  float* Qt = smem;               // [D][LDT]: Qt[d][r] = q[q0 + r][d]
-  float* KV = smem + D * LDT;     // Kt[D][LDT], then V[BK][D]
-  float* Pt = KV + D * LDT;       // [BK][LDT]: Pt[c][r] = p[r][c]
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int offset = Sk - Sq;
-
-  const T* qg = q + ((static_cast<long long>(b) * Hq + h) * Sq) * D;
-  const T* kg = k + ((static_cast<long long>(b) * Hkv + hk) * Sk) * D;
-  const T* vg = v + ((static_cast<long long>(b) * Hkv + hk) * Sk) * D;
-  T* og = o + ((static_cast<long long>(b) * Hq + h) * Sq) * D;
-
-  for (int e = tid; e < BQ * D; e += THREADS) {
-    const int r = e / D, d = e % D;
-    Qt[d * LDT + r] =
-        q0 + r < Sq ? to_f32(qg[static_cast<long long>(q0 + r) * D + d]) : 0.f;
-  }
-
-  float m[4], l[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = MASKED;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
-  }
-
-  // kv tiles up to the one holding the last key the last real row may see
-  int n_tiles = (Sk + BK - 1) / BK;
-  if (causal) {
-    const int q_last = min(q0 + BQ, Sq) - 1;
-    n_tiles = min(n_tiles, (q_last + offset) / BK + 1);
-  }
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BK;
-    for (int e = tid; e < BK * D; e += THREADS) {
-      const int c = e / D, d = e % D;
-      KV[d * LDT + c] =
-          k0 + c < Sk ? to_f32(kg[static_cast<long long>(k0 + c) * D + d]) : 0.f;
-    }
-    __syncthreads();   // Qt (first tile) and Kt are staged
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(&Qt[d * LDT + ty * 4]);
-      const float4 c = *reinterpret_cast<const float4*>(&KV[d * LDT + tx * 4]);
-      const float qa[4] = {a.x, a.y, a.z, a.w};
-      const float kc[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = __fmaf_rn(qa[i], kc[j], s[i][j]);
-    }
-    __syncthreads();   // every thread is done with Kt: the buffer takes V
-
-    for (int e = tid; e < BK * D; e += THREADS) {
-      const int c = e / D, d = e % D;
-      KV[c * D + d] =
-          k0 + c < Sk ? to_f32(vg[static_cast<long long>(k0 + c) * D + d]) : 0.f;
-    }
-
-    // scale, mask and the online softmax update, all in registers
-    float alpha[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty * 4 + i;
-      float mloc = MASKED;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = k0 + tx * 4 + j;
-        const bool seen = !causal || kj <= qi + offset;
-        s[i][j] = seen ? s[i][j] * scale : MASKED;
-        if (kj < Sk) mloc = fmaxf(mloc, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mloc));
-      alpha[i] = expf(m[i] - m_new);
-      float lsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = k0 + tx * 4 + j;
-        const float p = kj < Sk ? expf(s[i][j] - m_new) : 0.f;
-        Pt[(tx * 4 + j) * LDT + ty * 4 + i] = p;
-        lsum += p;
-      }
-      l[i] = l[i] * alpha[i] + row_sum(lsum);
-      m[i] = m_new;
-    }
-    __syncthreads();   // V and Pt are staged
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NC; ++j) acc[i][j] *= alpha[i];
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      const float4 pa = *reinterpret_cast<const float4*>(&Pt[c * LDT + ty * 4]);
-      const float p[4] = {pa.x, pa.y, pa.z, pa.w};
-#pragma unroll
-      for (int g = 0; g < NC / 4; ++g) {
-        const float4 vv =
-            *reinterpret_cast<const float4*>(&KV[c * D + g * 64 + tx * 4]);
-        const float vc[4] = {vv.x, vv.y, vv.z, vv.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            acc[i][g * 4 + j] = __fmaf_rn(p[i], vc[j], acc[i][g * 4 + j]);
-      }
-    }
-    __syncthreads();   // V and Pt are read: the next tile may overwrite them
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty * 4 + i;
-    if (qi >= Sq) continue;
-    const float safe = l[i] == 0.f ? 1.f : l[i];
-#pragma unroll
-    for (int g = 0; g < NC / 4; ++g)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        og[static_cast<long long>(qi) * D + g * 64 + tx * 4 + j] =
-            from_f32<T>(acc[i][g * 4 + j] / safe);
-  }
-}
-
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Hq, int Hkv, int Sq, int Sk, int causal, cudaStream_t st) {
-  constexpr int bytes = smem_floats<D>() * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  flash_kernel<T, D><<<grid, THREADS, bytes, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Hq, Hkv, Sq, Sk, causal,
-      static_cast<float>(1.0 / std::sqrt(static_cast<double>(D))));
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* o, int B,
-             int Hq, int Hkv, int Sq, int Sk, int D, int causal,
-             cudaStream_t st) {
-  switch (D) {
-    case 64:
-      return launch<T, 64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, st);
-    case 128:
-      return launch<T, 128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, st);
-    case 256:
-      return launch<T, 256>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, st);
-  }
-  return -1;
-}
-
 
 namespace tc {
 
@@ -569,11 +389,18 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+__device__ __forceinline__ void store_out(bf16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
+
 // One block per output row: o = sum_s w_s acc_s / sum_s w_s l_s with
-// w_s = exp(m_s - max_s m_s), cast to bf16.
+// w_s = exp(m_s - max_s m_s), over the chunks in order (two launches give
+// the same bits), stored as T: cast to bf16, or as it is for fp32.
+template <typename T>
 __global__ void __launch_bounds__(MERGE_THREADS)
 merge_kernel(const float* __restrict__ ws_o, const float* __restrict__ ws_m,
-             const float* __restrict__ ws_l, bf16* __restrict__ o,
+             const float* __restrict__ ws_l, T* __restrict__ o,
              long long rows, int n_split, int D) {
   const long long row = blockIdx.x;
   float m = MASKED;
@@ -586,7 +413,7 @@ merge_kernel(const float* __restrict__ ws_o, const float* __restrict__ ws_m,
     float a = 0.f;
     for (int s = 0; s < n_split; ++s)
       a += expf(ws_m[s * rows + row] - m) * ws_o[(s * rows + row) * D + d];
-    o[row * D + d] = __float2bfloat16(a / safe);
+    store_out(o + row * D + d, a / safe);
   }
 }
 
@@ -610,34 +437,389 @@ int launch(const void* q, const void* k, const void* v, void* o, float* ws_o,
       tiles_per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
-  merge_kernel<<<static_cast<unsigned>(rows), MERGE_THREADS, 0, st>>>(
+  merge_kernel<bf16><<<static_cast<unsigned>(rows), MERGE_THREADS, 0, st>>>(
       ws_o, ws_m, ws_l, static_cast<bf16*>(o), rows, n_split, D);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace tc
 
-}  // namespace
+namespace f32 {
 
-// C entry points (bound with ctypes).  Each launches on ``stream`` and
-// returns the cudaGetLastError() code of its launches, or -1 for an
-// unsupported head_dim or head grouping, or Sk < Sq.
+constexpr int BQ = 64;          // query rows a block
+constexpr int BK = 32;          // keys a kv tile
+constexpr int RG = 16;          // row groups: group r owns rows r + 16i, i < 4
+constexpr int TM = BQ / RG;     // rows a thread
+static_assert(TM == 4, "a thread's rows move as one float4 of Pt");
+constexpr int LDP = BQ + 4;     // floats of a row of Pt
+constexpr float MASKED = -1e30f;
 
-// fp32 q, k, v and o: the CUDA-core kernel.
-extern "C" int flash_attention_fp32_launch(const void* q, const void* k,
-                                           const void* v, void* o, int B,
-                                           int Hq, int Hkv, int Sq, int Sk,
-                                           int D, int causal, void* stream) {
-  if (Hkv <= 0 || Hq % Hkv != 0 || Sk < Sq) return -1;
-  if (B == 0 || Hq == 0 || Sq == 0) return 0;
-  return launch_d<float>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, causal,
-                         static_cast<cudaStream_t>(stream));
+template <int D>
+struct Cfg {
+  // key lanes a row group: 8 (128 threads, 4 keys a thread) for D <= 128,
+  // 16 (256 threads, 2 keys) at D = 256, where 4 x 32 accumulators a thread
+  // would not fit beside the scores
+  static constexpr int KL = D <= 128 ? 8 : 16;
+  static constexpr int THREADS = RG * KL;
+  static constexpr int TN = BK / KL;            // keys a thread
+  static constexpr int NG = D / (4 * KL);       // 4-column groups a thread
+  static constexpr int LD = D + 4;              // floats of a Q, K or V row
+  static constexpr int Q_FLOATS = BQ * LD;
+  static constexpr int TILE_FLOATS = BK * LD;
+  // Q, K[2], V[2], Pt
+  static constexpr int SMEM_BYTES =
+      (Q_FLOATS + 4 * TILE_FLOATS + BK * LDP) * static_cast<int>(sizeof(float));
+  static constexpr int MIN_BLOCKS = D == 64 ? 3 : D == 128 ? 2 : 1;
+};
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// bf16 q, k, v and o (16-byte aligned): the tensor-core kernel.  With
-// n_split > 1, ws_o holds n_split * B * Hq * Sq * D floats and ws_ml
-// 2 * n_split * B * Hq * Sq (m, then l); each of the n_split chunks covers
-// tiles_per_split kv tiles of 64 keys (32 at D = 256).
+// Max and sum over the KL lanes that share a query row.
+template <int KL>
+__device__ __forceinline__ float row_max(float v) {
+#pragma unroll
+  for (int off = KL / 2; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+template <int KL>
+__device__ __forceinline__ float row_sum(float v) {
+#pragma unroll
+  for (int off = KL / 2; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Start copying rows [row0, row0 + ROWS) of a [n_rows, D] fp32 matrix into
+// a [ROWS][LD] shared tile, 16 bytes a copy; rows past n_rows are zero.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_rows(float* sm, const float* g, int row0,
+                                          int n_rows, int tid) {
+  constexpr int CPR = D / 4;    // 16-byte chunks a row
+  constexpr int THREADS = Cfg<D>::THREADS;
+  static_assert(ROWS * CPR % THREADS == 0, "whole chunks a thread");
+#pragma unroll
+  for (int i = 0; i < ROWS * CPR / THREADS; ++i) {
+    const int c = tid + i * THREADS;
+    const int r = c / CPR, cc = c % CPR;
+    const bool ok = row0 + r < n_rows;
+    const float* src =
+        g + static_cast<long long>(ok ? row0 + r : 0) * D + cc * 4;
+    tc::cp_async16(sm + r * Cfg<D>::LD + cc * 4, src, ok);
+  }
+}
+
+// One block: query tile blockIdx.x (from the last), head blockIdx.y, batch
+// and chunk blockIdx.z.  Thread (rg, tx) owns rows rg + 16i (i < 4), keys
+// tx + KL j (j < TN) of each tile, and output columns g * 4 KL + 4 tx + e.
+// With n_split == 1 it writes the normalised rows, else its chunk's acc, m
+// and l to the workspace.
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::THREADS, Cfg<D>::MIN_BLOCKS)
+flash_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o,
+                  float* __restrict__ ws_o, float* __restrict__ ws_m,
+                  float* __restrict__ ws_l, int Hq, int Hkv, int Sq, int Sk,
+                  int causal, float scale, int n_split, int tiles_per_split) {
+  using C = Cfg<D>;
+  constexpr int KL = C::KL, TN = C::TN, NG = C::NG, LD = C::LD;
+  constexpr int TILE = C::TILE_FLOATS;
+
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;                   // [BQ][LD]
+  float* Ks = Qs + C::Q_FLOATS;       // [2][BK][LD]
+  float* Vs = Ks + 2 * TILE;          // [2][BK][LD]
+  float* Pt = Vs + 2 * TILE;          // [BK][LDP]: Pt[c][4 rg + i] = p of
+                                      // row rg + 16i, key c
+
+  const int tid = threadIdx.x;
+  const int tx = tid % KL;
+  const int rg = tid / KL;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z / n_split, split = blockIdx.z % n_split;
+  const int hk = h / (Hq / Hkv);
+  const int offset = Sk - Sq;
+  const long long bh = static_cast<long long>(b) * Hq + h;
+  const float* qg = q + bh * Sq * D;
+  const float* kg = k + (static_cast<long long>(b) * Hkv + hk) * Sk * D;
+  const float* vg = v + (static_cast<long long>(b) * Hkv + hk) * Sk * D;
+
+  // kv tiles up to the one holding the last key the last real row may see,
+  // then this block's chunk of them
+  int n_tiles = (Sk + BK - 1) / BK;
+  if (causal) n_tiles = min(n_tiles, (min(q0 + BQ, Sq) - 1 + offset) / BK + 1);
+  const int t_begin = split * tiles_per_split;
+  const int t_end = min(n_tiles, t_begin + tiles_per_split);
+
+  float acc[TM][4 * NG];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int c = 0; c < 4 * NG; ++c) acc[i][c] = 0.f;
+  float m_run[TM], l_part[TM];     // l_part: this lane's share of l
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    m_run[i] = MASKED;
+    l_part[i] = 0.f;
+  }
+
+  if (t_begin < t_end) {
+    load_rows<D, BQ>(Qs, qg, q0, Sq, tid);
+    load_rows<D, BK>(Ks, kg, t_begin * BK, Sk, tid);
+    tc::cp_async_commit();
+    load_rows<D, BK>(Vs, vg, t_begin * BK, Sk, tid);
+    tc::cp_async_commit();
+  }
+  const float* qr = Qs + rg * LD;
+  for (int t = t_begin; t < t_end; ++t) {
+    const int buf = (t - t_begin) & 1;
+    const float* Kb = Ks + buf * TILE;
+    const float* Vb = Vs + buf * TILE;
+    cp_async_wait<1>();   // this thread's copies of K_t (and Q) landed
+    __syncthreads();      // everyone's; tile t-1 is consumed, so the other
+                          // stage is free
+    if (t + 1 < t_end)
+      load_rows<D, BK>(Ks + (buf ^ 1) * TILE, kg, (t + 1) * BK, Sk, tid);
+    tc::cp_async_commit();
+
+    // S = Q K^T for rows rg + 16i and keys tx + KL j
+    float s[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) s[i][j] = 0.f;
+    const float* kr = Kb + tx * LD;
+#pragma unroll 8
+    for (int d = 0; d < D; d += 4) {
+      float4 a[TM], c[TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+        a[i] = *reinterpret_cast<const float4*>(qr + i * RG * LD + d);
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+        c[j] = *reinterpret_cast<const float4*>(kr + j * KL * LD + d);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          s[i][j] = __fmaf_rn(a[i].x, c[j].x, s[i][j]);
+          s[i][j] = __fmaf_rn(a[i].y, c[j].y, s[i][j]);
+          s[i][j] = __fmaf_rn(a[i].z, c[j].z, s[i][j]);
+          s[i][j] = __fmaf_rn(a[i].w, c[j].w, s[i][j]);
+        }
+    }
+
+    // scale, mask (only where the tile crosses Sk or the block's causal
+    // diagonal) and the online softmax update, in registers
+    const int k0 = t * BK;
+    const bool edge = k0 + BK > Sk || (causal && k0 + BK - 1 > q0 + offset);
+    float alpha[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int qi = q0 + rg + RG * i;
+      float mx = MASKED;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        float x = s[i][j] * scale;
+        if (edge) {
+          const int key = k0 + tx + KL * j;
+          x = key < Sk && (!causal || key <= qi + offset) ? x : MASKED;
+        }
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+      const float m_new = fmaxf(m_run[i], row_max<KL>(mx));
+      alpha[i] = expf(m_run[i] - m_new);
+      // a row that has seen no key yet keeps p = 0 (a chunk of a split)
+      const float m_use = m_new == MASKED ? 0.f : m_new;
+      m_run[i] = m_new;
+      float lsum = 0.f;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        s[i][j] = expf(s[i][j] - m_use);
+        lsum += s[i][j];
+      }
+      l_part[i] = l_part[i] * alpha[i] + lsum;
+    }
+#pragma unroll
+    for (int j = 0; j < TN; ++j)
+      *reinterpret_cast<float4*>(Pt + (tx + KL * j) * LDP + rg * 4) =
+          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+
+    cp_async_wait<1>();   // this thread's copies of V_t landed
+    __syncthreads();      // everyone's, and Pt is written
+    if (t + 1 < t_end)
+      load_rows<D, BK>(Vs + (buf ^ 1) * TILE, vg, (t + 1) * BK, Sk, tid);
+    tc::cp_async_commit();
+
+    // O = alpha O + P V
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int c = 0; c < 4 * NG; ++c) acc[i][c] *= alpha[i];
+#pragma unroll 8
+    for (int c = 0; c < BK; ++c) {
+      const float4 pv = *reinterpret_cast<const float4*>(Pt + c * LDP + rg * 4);
+      const float p[TM] = {pv.x, pv.y, pv.z, pv.w};
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        const float4 vv = *reinterpret_cast<const float4*>(
+            Vb + c * LD + g * 4 * KL + tx * 4);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          acc[i][g * 4 + 0] = __fmaf_rn(p[i], vv.x, acc[i][g * 4 + 0]);
+          acc[i][g * 4 + 1] = __fmaf_rn(p[i], vv.y, acc[i][g * 4 + 1]);
+          acc[i][g * 4 + 2] = __fmaf_rn(p[i], vv.z, acc[i][g * 4 + 2]);
+          acc[i][g * 4 + 3] = __fmaf_rn(p[i], vv.w, acc[i][g * 4 + 3]);
+        }
+      }
+    }
+  }
+  tc::cp_async_wait_all();
+
+  // epilogue: the normalised rows, or this chunk's partials
+  float l[TM];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) l[i] = row_sum<KL>(l_part[i]);
+  const long long rows = static_cast<long long>(gridDim.z / n_split) * Hq * Sq;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int qi = q0 + rg + RG * i;
+    if (qi >= Sq) continue;
+    const long long row = bh * Sq + qi;
+    float* dst = n_split == 1 ? o + row * D : ws_o + (split * rows + row) * D;
+    // a chunk's partials are stored raw (x / 1 is x)
+    const float den = n_split == 1 && l[i] != 0.f ? l[i] : 1.f;
+#pragma unroll
+    for (int g = 0; g < NG; ++g)
+      *reinterpret_cast<float4*>(dst + g * 4 * KL + tx * 4) =
+          make_float4(acc[i][g * 4] / den, acc[i][g * 4 + 1] / den,
+                      acc[i][g * 4 + 2] / den, acc[i][g * 4 + 3] / den);
+    if (n_split > 1 && tx == 0) {
+      ws_m[split * rows + row] = m_run[i];
+      ws_l[split * rows + row] = l[i];
+    }
+  }
+}
+
+// Lets the kernel use its tiles (above 48 KB of shared memory), with the
+// largest shared-memory carveout so that two blocks fit an SM at D = 128.
+template <int D>
+cudaError_t set_smem() {
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fp32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Cfg<D>::SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(flash_fp32_kernel<D>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, float* ws_o,
+           float* ws_ml, int B, int Hq, int Hkv, int Sq, int Sk, int causal,
+           int n_split, int tiles_per_split, cudaStream_t st) {
+  cudaError_t err = set_smem<D>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long rows = static_cast<long long>(B) * Hq * Sq;
+  float* ws_m = ws_ml;
+  float* ws_l = ws_ml ? ws_ml + n_split * rows : nullptr;
+  const dim3 grid((Sq + BQ - 1) / BQ, Hq, B * n_split);
+  flash_fp32_kernel<D><<<grid, Cfg<D>::THREADS, Cfg<D>::SMEM_BYTES, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), ws_o, ws_m, ws_l,
+      Hq, Hkv, Sq, Sk, causal,
+      static_cast<float>(1.0 / std::sqrt(static_cast<double>(D))), n_split,
+      tiles_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
+  tc::merge_kernel<float>
+      <<<static_cast<unsigned>(rows), tc::MERGE_THREADS, 0, st>>>(
+          ws_o, ws_m, ws_l, static_cast<float*>(o), rows, n_split, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Resident blocks an SM of the kernel at head_dim D.
+template <int D>
+int blocks_per_sm(int* blocks) {
+  cudaError_t err = set_smem<D>();
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, flash_fp32_kernel<D>, Cfg<D>::THREADS, Cfg<D>::SMEM_BYTES);
+  return static_cast<int>(err);
+}
+
+}  // namespace f32
+
+}  // namespace
+
+// C entry points (bound with ctypes).  Each launch entry launches on
+// ``stream`` and returns the cudaGetLastError() code of its launches, or -1
+// for an unsupported head_dim, head grouping, split or alignment, or
+// Sk < Sq.  With n_split > 1, ws_o holds n_split * B * Hq * Sq * D floats
+// and ws_ml 2 * n_split * B * Hq * Sq (m, then l); each of the n_split
+// chunks covers tiles_per_split kv tiles of the route's keys a tile.
+
+static bool bad_split(int Hq, int Hkv, int Sq, int Sk, int n_split,
+                      int tiles_per_split, const void* ws_o,
+                      const void* ws_ml) {
+  return Hkv <= 0 || Hq % Hkv != 0 || Sk < Sq || n_split < 1 ||
+         tiles_per_split < 1 || (n_split > 1 && (!ws_o || !ws_ml));
+}
+
+static bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// fp32 q, k, v and o (16-byte aligned): the CUDA-core kernel, 32 keys a
+// kv tile at every head_dim.
+extern "C" int flash_attention_fp32_launch(const void* q, const void* k,
+                                           const void* v, void* o,
+                                           void* ws_o, void* ws_ml, int B,
+                                           int Hq, int Hkv, int Sq, int Sk,
+                                           int D, int causal, int n_split,
+                                           int tiles_per_split,
+                                           void* stream) {
+  if (bad_split(Hq, Hkv, Sq, Sk, n_split, tiles_per_split, ws_o, ws_ml) ||
+      !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o) ||
+      (n_split > 1 && !aligned16(ws_o)))
+    return -1;
+  if (B == 0 || Hq == 0 || Sq == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* wo = static_cast<float*>(ws_o);
+  float* wml = static_cast<float*>(ws_ml);
+  switch (D) {
+    case 64:
+      return f32::launch<64>(q, k, v, o, wo, wml, B, Hq, Hkv, Sq, Sk, causal,
+                             n_split, tiles_per_split, st);
+    case 128:
+      return f32::launch<128>(q, k, v, o, wo, wml, B, Hq, Hkv, Sq, Sk,
+                              causal, n_split, tiles_per_split, st);
+    case 256:
+      return f32::launch<256>(q, k, v, o, wo, wml, B, Hq, Hkv, Sq, Sk,
+                              causal, n_split, tiles_per_split, st);
+  }
+  return -1;
+}
+
+// Blocks of the fp32 kernel at head_dim D that one SM of the current device
+// holds at once (the CUDA occupancy calculator), for the caller's split
+// planner.  Returns a CUDA error code, or -1 for an unsupported D.
+extern "C" int flash_attention_fp32_blocks_per_sm(int D, int* blocks) {
+  switch (D) {
+    case 64: return f32::blocks_per_sm<64>(blocks);
+    case 128: return f32::blocks_per_sm<128>(blocks);
+    case 256: return f32::blocks_per_sm<256>(blocks);
+  }
+  return -1;
+}
+
+// bf16 q, k, v and o (16-byte aligned): the tensor-core kernel, 64 keys a
+// kv tile (32 at D = 256).
 extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
                                            const void* v, void* o,
                                            void* ws_o, void* ws_ml, int B,
@@ -645,8 +827,7 @@ extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
                                            int D, int causal, int n_split,
                                            int tiles_per_split,
                                            void* stream) {
-  if (Hkv <= 0 || Hq % Hkv != 0 || Sk < Sq || n_split < 1 ||
-      tiles_per_split < 1 || (n_split > 1 && (!ws_o || !ws_ml)))
+  if (bad_split(Hq, Hkv, Sq, Sk, n_split, tiles_per_split, ws_o, ws_ml))
     return -1;
   if (B == 0 || Hq == 0 || Sq == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -383,6 +383,9 @@ HEAD_DIMS = (64, 128, 256)
 #: query rows of a block and keys of a kv tile of the bf16 kernel, by D
 ATTN_BLOCK_Q = 64
 ATTN_TILE_K = {64: 64, 128: 64, 256: 32}
+#: the same of the fp32 kernel, at every D
+ATTN_FP32_BLOCK_Q = 64
+ATTN_FP32_TILE_K = 32
 
 
 @functools.lru_cache(maxsize=None)
@@ -390,32 +393,72 @@ def _flash_fns():
     from repro_torch.kernels.build import load
     lib = load("flash_attention")
     f32 = lib.flash_attention_fp32_launch
-    f32.argtypes = [*[ctypes.c_void_p] * 4, *[ctypes.c_int] * 7,
-                    ctypes.c_void_p]
     tc = lib.flash_attention_bf16_launch
-    tc.argtypes = [*[ctypes.c_void_p] * 6, *[ctypes.c_int] * 9,
-                   ctypes.c_void_p]
     for fn in (f32, tc):
+        fn.argtypes = [*[ctypes.c_void_p] * 6, *[ctypes.c_int] * 9,
+                       ctypes.c_void_p]
+    occ = lib.flash_attention_fp32_blocks_per_sm
+    occ.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    for fn in (f32, tc, occ):
         fn.restype = ctypes.c_int
-    return {"tc": tc, "fp32": f32}
+    return {"tc": tc, "fp32": f32, "fp32_blocks_per_sm": occ}
 
 
-def attention_splits(B: int, Hq: int, Sq: int, Sk: int, D: int,
-                     n_sm: int) -> Tuple[int, int]:
-    """``(n_split, tiles_per_split)`` of the bf16 kernel's split over keys.
+def attention_splits(B: int, Hq: int, Sq: int, Sk: int, D: int, n_sm: int,
+                     block_q: int = ATTN_BLOCK_Q, tile_k: Optional[int] = None,
+                     blocks_per_sm: int = 2,
+                     one_wave: bool = False) -> Tuple[int, int]:
+    """``(n_split, tiles_per_split)`` of a route's split over keys.
 
-    When ``B * Hq * ceil(Sq / 64)`` blocks leave SMs idle, each block's kv
-    tiles are cut into chunks: about two blocks per SM, at most one chunk
-    per kv tile.  The last chunk may be shorter; none is empty for the
-    last query tile.  ``(1, n_kv_tiles)`` means no split.
+    ``block_q`` query rows a block and ``tile_k`` keys a kv tile are the
+    route's (by default the bf16 kernel's: 64 and ``ATTN_TILE_K[D]``).
+    When ``B * Hq * ceil(Sq / block_q)`` blocks leave SMs idle, each
+    block's kv tiles are cut into chunks, at most one chunk per kv tile,
+    for the card's ``n_sm * blocks_per_sm`` resident slots: by default
+    (the bf16 route) at least that many blocks, about two an SM; with
+    ``one_wave`` (the fp32 route, at its kernel's occupancy) the most that
+    fit the slots at once, since a second wave of a few blocks would take
+    as long as the first.  The last chunk may be shorter; none is empty
+    for the last query tile.  ``(1, n_kv_tiles)`` means no split.
     """
-    n_kv = max(_cdiv(Sk, ATTN_TILE_K[D]), 1)
-    blocks = B * Hq * _cdiv(Sq, ATTN_BLOCK_Q)
+    n_kv = max(_cdiv(Sk, tile_k or ATTN_TILE_K[D]), 1)
+    blocks = B * Hq * _cdiv(Sq, block_q)
     if blocks == 0 or blocks >= n_sm:
         return 1, n_kv
-    n_split = min(_cdiv(2 * n_sm, blocks), n_kv)
+    slots = blocks_per_sm * n_sm
+    n_split = min(slots // blocks if one_wave else _cdiv(slots, blocks),
+                  n_kv)
     per = _cdiv(n_kv, n_split)
     return _cdiv(n_kv, per), per
+
+
+@functools.lru_cache(maxsize=None)
+def attention_fp32_blocks_per_sm(index: Optional[int], D: int) -> int:
+    """Blocks of the fp32 attention kernel at head_dim ``D`` that one SM of
+    card ``index`` holds at once (the CUDA occupancy calculator)."""
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(index):      # the query reads the current card
+        rc = _flash_fns()["fp32_blocks_per_sm"](D, ctypes.byref(blocks))
+    if rc != 0 or blocks.value < 1:
+        raise RuntimeError(f"flash_attention fp32 occupancy query failed: "
+                           f"CUDA error {rc}, {blocks.value} blocks an SM")
+    return blocks.value
+
+
+def attention_launch_splits(q: torch.Tensor,
+                            k: torch.Tensor) -> Tuple[int, int]:
+    """The ``(n_split, tiles_per_split)`` that ``flash_attention`` takes for
+    these CUDA operands: the bf16 route's rule, or the fp32 kernel's tiles
+    in one wave at the occupancy its kernel reports on this card."""
+    B, Hq, Sq, D = q.shape
+    Sk = k.shape[2]
+    index = q.device.index
+    if q.dtype == torch.bfloat16:
+        return attention_splits(B, Hq, Sq, Sk, D, _sm_count(index))
+    return attention_splits(B, Hq, Sq, Sk, D, _sm_count(index),
+                            ATTN_FP32_BLOCK_Q, ATTN_FP32_TILE_K,
+                            attention_fp32_blocks_per_sm(index, D),
+                            one_wave=True)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -426,9 +469,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (query head h reads KV head h // (Hq/Hkv), no repeat), Sk >= Sq, D in
     64/128/256, all float32 or all bfloat16.  Scale 1/sqrt(D); the causal
     diagonal is shifted by Sk - Sq (chunked decode).  Returns [B, Hq, Sq, D]
-    in ``q.dtype``.  bfloat16 runs on the tensor cores (split over keys
-    when the query blocks are few, ``attention_splits``), float32 on the
-    CUDA cores.
+    in ``q.dtype``.  bfloat16 runs on the tensor cores, float32 on the
+    CUDA cores in IEEE fp32 (no TF32).  CUDA operands must be contiguous
+    and 16-byte aligned.  When the query blocks are too few to fill the
+    card, either route splits over keys (``attention_launch_splits``): the
+    chunks' fp32 partials go to a workspace allocated here on the caller's
+    stream, and a second kernel merges them in chunk order, so two launches
+    give the same bits.
     """
     if q.dim() != 4 or k.dim() != 4 or tuple(k.shape) != tuple(v.shape):
         raise ValueError(f"flash_attention takes q [B,Hq,Sq,D] and k, v "
@@ -458,32 +505,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"not {dev.type}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention needs contiguous q, k and v")
+    route = "tc" if q.dtype == torch.bfloat16 else "fp32"
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError(f"flash_attention needs 16-byte aligned "
+                         f"{'bf16' if route == 'tc' else 'fp32'} q, k and v")
     out = torch.empty_like(q)
-    shape = (B, Hq, Hkv, Sq, Sk, D, int(causal))
-    if q.dtype == torch.bfloat16:
-        route = "tc"
-        if any(x.data_ptr() % 16 for x in (q, k, v)):
-            raise ValueError("flash_attention needs 16-byte aligned bf16 "
-                             "q, k and v")
-        n_split, per = attention_splits(B, Hq, Sq, Sk, D,
-                                        _sm_count(dev.index))
-        ws_o = ws_ml = None
-        if n_split > 1:
-            rows = B * Hq * Sq
-            ws_o = torch.empty((n_split, rows, D), dtype=torch.float32,
-                               device=dev)
-            ws_ml = torch.empty((2, n_split, rows), dtype=torch.float32,
-                                device=dev)
-        rc = _flash_fns()["tc"](
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            ws_o.data_ptr() if ws_o is not None else None,
-            ws_ml.data_ptr() if ws_ml is not None else None,
-            *shape, n_split, per, _stream(dev))
-    else:
-        route = "fp32"
-        rc = _flash_fns()["fp32"](
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *shape,
-            _stream(dev))
+    n_split, per = attention_launch_splits(q, k)
+    ws_o = ws_ml = None
+    if n_split > 1:
+        # the partials live on the caller's stream until the merge,
+        # launched on it in the same call, has read them
+        rows = B * Hq * Sq
+        ws_o = torch.empty((n_split, rows, D), dtype=torch.float32,
+                           device=dev)
+        ws_ml = torch.empty((2, n_split, rows), dtype=torch.float32,
+                            device=dev)
+    rc = _flash_fns()[route](
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        ws_o.data_ptr() if ws_o is not None else None,
+        ws_ml.data_ptr() if ws_ml is not None else None,
+        B, Hq, Hkv, Sq, Sk, D, int(causal), n_split, per, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"flash_attention {route} launch failed: CUDA "
                            f"error {rc}")
