@@ -77,7 +77,7 @@ from repro_torch.core.pattern import (
     normalize_preds,
 )
 from repro_torch.core.schema import GraphSchema, NO_LABEL
-from repro_torch.utils import INF_HOPS, host, host_flag, round_up
+from repro_torch.utils import INF_HOPS, host, host_flag, round_up, trace
 
 
 # ---------------------------------------------------------------------------
@@ -599,11 +599,12 @@ class CompiledPlan:
     def default_sources(self) -> np.ndarray:
         """Source node ids selected by the plan's start constraints on the
         *current* graph."""
-        g = self.engine.g
-        src_mask = g.node_mask(self.start_label_id, self.start_key)
-        if self.start_preds:
-            src_mask = src_mask & node_pred_mask(g, self.start_preds)
-        return np.flatnonzero(host(src_mask)).astype(np.int32)
+        with trace.span("exec.prepare"):
+            g = self.engine.g
+            src_mask = g.node_mask(self.start_label_id, self.start_key)
+            if self.start_preds:
+                src_mask = src_mask & node_pred_mask(g, self.start_preds)
+            return np.flatnonzero(host(src_mask)).astype(np.int32)
 
     def execute(self, sources: Optional[np.ndarray] = None) -> ReachResult:
         """Run the plan over blocked sources.  Explicit ``sources`` skip the
@@ -616,8 +617,9 @@ class CompiledPlan:
                       ) -> List[ReachResult]:
         """Run many same-plan queries as one stacked frontier batch; each
         query's metrics are exactly what a solo :meth:`execute` reports."""
-        return [rr.to_reach_result()
-                for rr in self.execute_rows(source_lists)]
+        rows = self.execute_rows(source_lists)
+        with trace.span("exec.result"):
+            return [rr.to_reach_result() for rr in rows]
 
     def execute_rows(self, source_lists: Sequence[np.ndarray], *,
                      adaptive_blocks: bool = False) -> List[RowResult]:
@@ -625,40 +627,42 @@ class CompiledPlan:
         :class:`RowResult` s carry the raw per-row DBHit/Rows vectors.
         ``adaptive_blocks`` enables the serve path's power-of-two block
         sizing (see :func:`block_sizes`)."""
-        g = self.engine.g
-        counts = [int(np.asarray(s).shape[0]) for s in source_lists]
-        R = sum(counts)
-        sizes = block_sizes(R, self.cfg.src_block, adaptive_blocks)
-        padded = np.full(sum(sizes), -1, np.int32)
-        if R:
-            padded[:R] = np.concatenate(
-                [np.asarray(s, np.int32) for s in source_lists])
-        if self.cfg.data_shards > 1:
-            eng = self.engine
-            node_label, node_key, node_alive, nprops = \
-                eng.sharded_node_data(self._nprop_names)
-            operands = self._gather_operands_sharded()
-            program, dev = self._program_sharded, eng.shard_devices()[0]
-        else:
-            node_label, node_key, node_alive = (g.node_label, g.node_key,
-                                                g.node_alive)
-            nprops = tuple(g.node_prop_col(name)
-                           for name in self._nprop_names)
-            operands = self._gather_operands()
-            program, dev = self._program, g.device
+        with trace.span("exec.prepare"):
+            g = self.engine.g
+            counts = [int(np.asarray(s).shape[0]) for s in source_lists]
+            R = sum(counts)
+            sizes = block_sizes(R, self.cfg.src_block, adaptive_blocks)
+            padded = np.full(sum(sizes), -1, np.int32)
+            if R:
+                padded[:R] = np.concatenate(
+                    [np.asarray(s, np.int32) for s in source_lists])
+            if self.cfg.data_shards > 1:
+                eng = self.engine
+                node_label, node_key, node_alive, nprops = \
+                    eng.sharded_node_data(self._nprop_names)
+                operands = self._gather_operands_sharded()
+                program, dev = self._program_sharded, eng.shard_devices()[0]
+            else:
+                node_label, node_key, node_alive = (g.node_label, g.node_key,
+                                                    g.node_alive)
+                nprops = tuple(g.node_prop_col(name)
+                               for name in self._nprop_names)
+                operands = self._gather_operands()
+                program, dev = self._program, g.device
         reach, db_vec, rows_vec = _run_blocks(
             lambda ids: program(ids, node_label, node_key, node_alive,
                                 nprops, operands),
             sizes, (padded,), dev, R, g.node_cap)
-        results: List[RowResult] = []
-        off = 0
-        for srcs, S in zip(source_lists, counts):
-            results.append(RowResult(
-                sources=np.asarray(srcs, np.int32),
-                reach=reach[off:off + S], db_vec=db_vec[off:off + S],
-                rows_vec=rows_vec[off:off + S], counting=self.counting))
-            off += S
-        return results
+        with trace.span("exec.result"):
+            results: List[RowResult] = []
+            off = 0
+            for srcs, S in zip(source_lists, counts):
+                results.append(RowResult(
+                    sources=np.asarray(srcs, np.int32),
+                    reach=reach[off:off + S], db_vec=db_vec[off:off + S],
+                    rows_vec=rows_vec[off:off + S], counting=self.counting))
+                off += S
+            return results
 
 
     # -- structural sharing ------------------------------------------------
@@ -755,7 +759,12 @@ def _run_blocks(fn, sizes: Sequence[int], row_ops: Sequence[np.ndarray],
     ``[R_pad]`` int64 device vectors (no concatenation, so no second
     copy); after the last block one :func:`host` call pulls the rows
     (sliced to ``[:R, :width]``: sharded F carries pad columns) and the
-    metrics — one pull per batch, whatever the block count."""
+    metrics — one pull per batch, whatever the block count.
+
+    Traced, the pull is the span ``exec.pull``, entered once the device has
+    run the blocks (:func:`trace.settle`), so that it times the copies
+    alone; it counts the ``bytes`` copied off a CUDA device.  The
+    conversion of the rows is the span ``exec.result``."""
     ops_dev = [torch.from_numpy(a).to(device) for a in row_ops]
     R_pad = sum(sizes)
     db_all = torch.zeros(R_pad, dtype=torch.int64, device=device)
@@ -775,9 +784,14 @@ def _run_blocks(fn, sizes: Sequence[int], row_ops: Sequence[np.ndarray],
         b0 += blk
     if not converged:
         raise RuntimeError("closure did not converge within max_closure_iters")
-    reach, met = host(reach_all[:R, :width],
-                      torch.stack([db_all[:R], rows_all[:R]]))
-    return reach.astype(np.int32), met[0], met[1]
+    met = torch.stack([db_all[:R], rows_all[:R]])
+    trace.settle(device)
+    with trace.span("exec.pull"):
+        reach, met = host(reach_all[:R, :width], met)
+        if reach_all.is_cuda:
+            trace.add("bytes", reach.nbytes + met.nbytes)
+    with trace.span("exec.result"):
+        return reach.astype(np.int32), met[0], met[1]
 
 
 # ---------------------------------------------------------------------------
@@ -1001,9 +1015,7 @@ class QueryPlanner:
 
     ``plan(q, views, view_gen)`` is the whole compile pipeline; both caches
     key off the query fingerprint.  ``plan_hits`` / ``plan_misses`` and
-    ``rewrite_hits`` / ``rewrite_misses`` make the caching observable;
-    ``rewrite_seconds_total`` over ``plan_calls`` is the amortized rewrite
-    cost.
+    ``rewrite_hits`` / ``rewrite_misses`` make the caching observable.
     """
 
     def __init__(self, engine: ExecEngine, schema: GraphSchema,
@@ -1020,7 +1032,6 @@ class QueryPlanner:
         self.rewrite_hits = 0
         self.rewrite_misses = 0
         self.plan_calls = 0
-        self.rewrite_seconds_total = 0.0
 
     def plan(self, q: Query, views: Sequence, view_gen: int
              ) -> Tuple[CompiledPlan, float]:
@@ -1047,7 +1058,6 @@ class QueryPlanner:
                 t0 = time.perf_counter()
                 q_rw = optimize_query(q, list(views))
                 rewrite_s = time.perf_counter() - t0
-                self.rewrite_seconds_total += rewrite_s
                 path, force_bool = q_rw.path, q_rw.force_bool
                 # superseded generations are unreachable: prune them
                 if any(k[1] != view_gen for k in self._rewrites):

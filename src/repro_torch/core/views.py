@@ -43,7 +43,7 @@ from repro_torch.core.parser import parse_query, parse_view
 from repro_torch.core.pattern import FreshnessPolicy, Query, ViewDef
 from repro_torch.core.plan import QueryPlanner
 from repro_torch.core.schema import GraphSchema
-from repro_torch.utils import host, resolve_device
+from repro_torch.utils import host, resolve_device, trace
 from repro_torch.utils.device import DeviceLike
 from repro_torch.utils.deprecation import warn_once
 
@@ -406,7 +406,7 @@ class GraphSession:
         self._set_graph(g, {label_id})
 
         start_lid = self.schema.node_label_id(vdef.match.start.label)
-        n_sl = int(self.g.node_mask(start_lid).sum())
+        n_sl = int(host(self.g.node_mask(start_lid).sum()))
         e_vl = int(n_new)
         init_db_hit = res.metrics.db_hits
         denom = max(n_sl + 2 * e_vl, 1)
@@ -619,7 +619,14 @@ class GraphSession:
         node deletes are handled by one batched affected-source recompute per
         view on the final graph.  Returns the assigned edge and node slots,
         in batch order.
+
+        Traced, the call is the root span ``maint.apply`` and each view's
+        maintenance a ``maint.view`` span under it, named by ``view``.
         """
+        with trace.span("maint.apply"):
+            return self._apply_writes(batch)
+
+    def _apply_writes(self, batch: G.WriteBatch) -> BatchResult:
         metrics = Metrics()
         self.write_epoch += 1
         # exact maintenance telescopes around THIS batch from a consistent
@@ -797,92 +804,98 @@ class GraphSession:
 
         # -- per-view maintenance: one grouped pass per (view, label)
         for view in self.views.values():
-            if dead_set:
-                # index purge stays synchronous for every policy: arena edges
-                # incident to deleted nodes are already dead, and leaving the
-                # slots indexed would alias recycled slots on the next create
-                for key in [k for k in view.pair_slot
-                            if k[0] in dead_set or k[1] in dead_set]:
-                    view.pair_slot.pop(key)
-            if self._effective_mode(view, batch) != "exact":
-                # non-exact policies: the base mutations above already landed,
-                # so only this view's derived edges go stale.  Queue the
-                # structural endpoints per label; the drain sweep re-derives
-                # every affected source on the then-current graph.
-                pend = view.pending
-                for name, srcs, dsts, _eids in del_groups:
-                    if self._uses_label(view, name):
-                        pend.add_edges(name, srcs, dsts, self.write_epoch)
-                for name, srcs, dsts, _eids in create_groups:
-                    if self._uses_label(view, name):
-                        pend.add_edges(name, srcs, dsts, self.write_epoch)
-                for lid, srcs, dsts in incident_groups:
-                    if self._uses_label(view, name_of(lid)):
-                        pend.add_edges(name_of(lid), srcs, dsts,
-                                       self.write_epoch)
-                view.stats.e_vl = len(view.pair_slot)
-                continue
-            affected = np.zeros(0, np.int32)
-            if view.counting:
-                for name, srcs, dsts, eids in del_groups:
-                    if not self._uses_label(view, name):
-                        continue
-                    delta = batch_edge_delta_pairs(
-                        view.templates, view.vdef, self.schema, srcs, dsts,
-                        name, counting=True, metrics=metrics,
-                        ex_pre=self._old_exec, ex_suf=self._mid_exec,
-                        edge_ids=eids)
-                    self._apply_delta(view, endpoints_alive(delta), sign=-1)
-                for name, srcs, dsts, eids in create_groups:
-                    if not self._uses_label(view, name):
-                        continue
-                    delta = batch_edge_delta_pairs(
-                        view.templates, view.vdef, self.schema, srcs, dsts,
-                        name, counting=True, metrics=metrics,
-                        ex_pre=self._aux_exec, ex_suf=self._mid_exec,
-                        edge_ids=eids)
-                    self._apply_delta(view, endpoints_alive(delta), sign=+1)
-            else:
-                # set semantics: deletes delimit affected sources on the old
-                # graph; rows re-derive on the final graph below
-                for name, srcs, dsts, eids in del_groups:
-                    if not self._uses_label(view, name):
-                        continue
-                    aff = affected_sources_edges(
-                        view.templates, view.vdef, self.schema, srcs, dsts,
-                        name, metrics=metrics, ex=self._old_exec,
-                        edge_ids=eids)
+            with trace.span("maint.view", view=view.name):
+                if dead_set:
+                    # index purge stays synchronous for every policy: arena
+                    # edges incident to deleted nodes are already dead, and
+                    # leaving the slots indexed would alias recycled slots on
+                    # the next create
+                    for key in [k for k in view.pair_slot
+                                if k[0] in dead_set or k[1] in dead_set]:
+                        view.pair_slot.pop(key)
+                if self._effective_mode(view, batch) != "exact":
+                    # non-exact policies: the base mutations above already
+                    # landed, so only this view's derived edges go stale.
+                    # Queue the structural endpoints per label; the drain
+                    # sweep re-derives every affected source on the
+                    # then-current graph.
+                    pend = view.pending
+                    for name, srcs, dsts, _eids in del_groups:
+                        if self._uses_label(view, name):
+                            pend.add_edges(name, srcs, dsts, self.write_epoch)
+                    for name, srcs, dsts, _eids in create_groups:
+                        if self._uses_label(view, name):
+                            pend.add_edges(name, srcs, dsts, self.write_epoch)
+                    for lid, srcs, dsts in incident_groups:
+                        if self._uses_label(view, name_of(lid)):
+                            pend.add_edges(name_of(lid), srcs, dsts,
+                                           self.write_epoch)
+                    view.stats.e_vl = len(view.pair_slot)
+                    continue
+                affected = np.zeros(0, np.int32)
+                if view.counting:
+                    for name, srcs, dsts, eids in del_groups:
+                        if not self._uses_label(view, name):
+                            continue
+                        delta = batch_edge_delta_pairs(
+                            view.templates, view.vdef, self.schema, srcs, dsts,
+                            name, counting=True, metrics=metrics,
+                            ex_pre=self._old_exec, ex_suf=self._mid_exec,
+                            edge_ids=eids)
+                        self._apply_delta(view, endpoints_alive(delta),
+                                          sign=-1)
+                    for name, srcs, dsts, eids in create_groups:
+                        if not self._uses_label(view, name):
+                            continue
+                        delta = batch_edge_delta_pairs(
+                            view.templates, view.vdef, self.schema, srcs, dsts,
+                            name, counting=True, metrics=metrics,
+                            ex_pre=self._aux_exec, ex_suf=self._mid_exec,
+                            edge_ids=eids)
+                        self._apply_delta(view, endpoints_alive(delta),
+                                          sign=+1)
+                else:
+                    # set semantics: deletes delimit affected sources on the
+                    # old graph; rows re-derive on the final graph below
+                    for name, srcs, dsts, eids in del_groups:
+                        if not self._uses_label(view, name):
+                            continue
+                        aff = affected_sources_edges(
+                            view.templates, view.vdef, self.schema, srcs, dsts,
+                            name, metrics=metrics, ex=self._old_exec,
+                            edge_ids=eids)
+                        affected = np.union1d(affected, aff).astype(np.int32)
+                if node_del.size:
+                    aff = affected_sources_nodes(
+                        view.templates, view.vdef, self.schema, node_del,
+                        metrics=metrics, ex=self._aux_exec)
                     affected = np.union1d(affected, aff).astype(np.int32)
-            if node_del.size:
-                aff = affected_sources_nodes(
-                    view.templates, view.vdef, self.schema, node_del,
-                    metrics=metrics, ex=self._aux_exec)
-                affected = np.union1d(affected, aff).astype(np.int32)
-            if affected.size:
-                affected = np.setdiff1d(affected, node_del).astype(np.int32)
-            if affected.size:
-                self._recompute_sources(view, affected, metrics,
-                                        ex=self._delta)
-            if not view.counting:
-                # creates under set semantics: union-add pairs reachable
-                # through the new edges, evaluated on the final graph
-                for name, srcs, dsts, eids in create_groups:
-                    if not self._uses_label(view, name):
-                        continue
-                    delta = batch_edge_delta_pairs(
-                        view.templates, view.vdef, self.schema, srcs, dsts,
-                        name, counting=False, metrics=metrics,
-                        ex_pre=self._delta, ex_suf=self._delta,
-                        edge_ids=eids)
-                    self._apply_union(view, endpoints_alive(delta))
-            if (self.cfg.data_shards > 1
-                    and (node_del.size
-                         or any(self._uses_label(view, name)
-                                for name, _, _, _ in
-                                del_groups + create_groups))):
-                # exact maintenance swept this view: route to its owner
-                self.engine.note_shard_sweep(view.label_id)
-            view.stats.e_vl = len(view.pair_slot)
+                if affected.size:
+                    affected = np.setdiff1d(affected,
+                                            node_del).astype(np.int32)
+                if affected.size:
+                    self._recompute_sources(view, affected, metrics,
+                                            ex=self._delta)
+                if not view.counting:
+                    # creates under set semantics: union-add pairs reachable
+                    # through the new edges, evaluated on the final graph
+                    for name, srcs, dsts, eids in create_groups:
+                        if not self._uses_label(view, name):
+                            continue
+                        delta = batch_edge_delta_pairs(
+                            view.templates, view.vdef, self.schema, srcs, dsts,
+                            name, counting=False, metrics=metrics,
+                            ex_pre=self._delta, ex_suf=self._delta,
+                            edge_ids=eids)
+                        self._apply_union(view, endpoints_alive(delta))
+                if (self.cfg.data_shards > 1
+                        and (node_del.size
+                             or any(self._uses_label(view, name)
+                                    for name, _, _, _ in
+                                    del_groups + create_groups))):
+                    # exact maintenance swept this view: route to its owner
+                    self.engine.note_shard_sweep(view.label_id)
+                view.stats.e_vl = len(view.pair_slot)
 
         # -- step 5: property updates  g3 -> g4 (the prop-update write kind)
         self._apply_prop_updates(batch, created_slots, created_nodes, metrics)
@@ -1240,29 +1253,37 @@ class GraphSession:
         per-client binding a serving workload carries); like
         :meth:`~repro_torch.core.executor.PathExecutor.run_path`, explicit sources
         skip the start node's label/key/predicate filter — the caller owns
-        the binding."""
-        if isinstance(q, str):
-            q = parse_query(q)
-        use = self.auto_optimize if use_views is None else use_views
-        self._maybe_drain_for_query(q, use)
-        views = list(self.views.values()) if (use and self.views) else []
-        plan, self.last_rewrite_seconds = self.planner.plan(
-            q, views, self.view_set_generation)
-        # post-plan safety net: the greedy rewrite fixpoint can splice in a
-        # view the pre-plan pattern check missed (a view matching only a
-        # partially rewritten path).  Drain any such stale view, then replan
-        # — the drain bumps the view label's epoch, so the first plan is
-        # invalid anyway
-        drained = False
-        for view in self.views.values():
-            if (view.label_id in plan.label_epochs
-                    and self._read_triggers_drain(view)):
-                self._drain_view(view, Metrics())
-                drained = True
-        if drained:
-            plan, rw = self.planner.plan(q, views, self.view_set_generation)
-            self.last_rewrite_seconds += rw
-        return plan.execute(sources=sources)
+        the binding.
+
+        Traced, the call is the root span ``session.query``; each planner
+        call under it is a ``front.plan`` span, and the plan's execution
+        adds ``exec.*`` spans (``core/plan.py``)."""
+        with trace.span("session.query"):
+            if isinstance(q, str):
+                q = parse_query(q)
+            use = self.auto_optimize if use_views is None else use_views
+            self._maybe_drain_for_query(q, use)
+            views = list(self.views.values()) if (use and self.views) else []
+            with trace.span("front.plan"):
+                plan, self.last_rewrite_seconds = self.planner.plan(
+                    q, views, self.view_set_generation)
+            # post-plan safety net: the greedy rewrite fixpoint can splice in
+            # a view the pre-plan pattern check missed (a view matching only
+            # a partially rewritten path).  Drain any such stale view, then
+            # replan — the drain bumps the view label's epoch, so the first
+            # plan is invalid anyway
+            drained = False
+            for view in self.views.values():
+                if (view.label_id in plan.label_epochs
+                        and self._read_triggers_drain(view)):
+                    self._drain_view(view, Metrics())
+                    drained = True
+            if drained:
+                with trace.span("front.plan"):
+                    plan, rw = self.planner.plan(q, views,
+                                                 self.view_set_generation)
+                self.last_rewrite_seconds += rw
+            return plan.execute(sources=sources)
 
     # ------------------------------------------------------------- serving
 

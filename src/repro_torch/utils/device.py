@@ -5,7 +5,8 @@ resolves to ``cuda`` and raises when no CUDA device exists — there is no
 silent fallback to the host.  Every read of device state into numpy goes
 through :func:`host`, and every read of a scalar flag through
 :func:`host_flag`, so host syncs are visible in one place: each counts its
-calls (``host.calls``, ``host_flag.calls``).
+calls (``host.calls``, ``host_flag.calls``), and while tracing is on
+adds it to the innermost open span's ``pulls`` (``utils/trace.py``).
 """
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ from typing import Optional, Union
 
 import numpy as np
 import torch
+
+from repro_torch.utils import trace
 
 DeviceLike = Optional[Union[str, torch.device]]
 
@@ -40,6 +43,7 @@ def host(*xs):
     first copy waits for the device, the rest of the call's copies find
     it idle."""
     host.calls += 1
+    trace.add("pulls", 1)
     if len(xs) == 1:
         return _pull(xs[0])
     return tuple(_pull(x) for x in xs)
@@ -49,6 +53,7 @@ def host_flag(x) -> bool:
     """A device scalar (a flag or a count) read as a Python bool, for the
     host to branch on; counted apart from :func:`host`."""
     host_flag.calls += 1
+    trace.add("pulls", 1)
     if isinstance(x, torch.Tensor):
         return bool(x.item())
     return bool(x)
