@@ -78,6 +78,7 @@ from repro_torch.core.pattern import (
 )
 from repro_torch.core.schema import GraphSchema, NO_LABEL
 from repro_torch.utils import INF_HOPS, host, host_flag, round_up, trace
+from repro_torch.utils.device import pinned_empty
 
 
 # ---------------------------------------------------------------------------
@@ -754,30 +755,35 @@ def _run_blocks(fn, sizes: Sequence[int], row_ops: Sequence[np.ndarray],
     arrays ``row_ops`` and bring back (reach [R, width] int32, db_vec,
     rows_vec); raises if a closure did not converge.
 
-    The per-row arrays go to the device once.  Each block writes its F
-    into one ``[R_pad, N]`` device tensor and its metric vectors into
-    ``[R_pad]`` int64 device vectors (no concatenation, so no second
-    copy); after the last block one :func:`host` call pulls the rows
-    (sliced to ``[:R, :width]``: sharded F carries pad columns) and the
-    metrics — one pull per batch, whatever the block count.
+    The per-row arrays go to the device once.  Each block writes its F into
+    one ``[R_pad, width]`` int32 device tensor (sliced to ``width``: sharded
+    F carries pad columns; a set-semantics F is widened there, on the
+    device) and its metric vectors into ``[R_pad]`` int64 device vectors
+    (no concatenation, so no second copy); after the last block one
+    :func:`host` call pulls the rows and the metrics — one pull per batch,
+    whatever the block count.
+
+    On a CUDA device the rows land in a page-locked ``[R, width]`` tensor
+    from the caching pinned-host allocator (:func:`pinned_empty`), taken
+    before the wait below so that it overlaps the hops: one DMA, and its
+    memory is the result.  A kept result keeps its block, so no later
+    batch writes into it.  On the CPU the result is the device tensor's own
+    memory, fresh for each call.
 
     Traced, the pull is the span ``exec.pull``, entered once the device has
     run the blocks (:func:`trace.settle`), so that it times the copies
-    alone; it counts the ``bytes`` copied off a CUDA device.  The
-    conversion of the rows is the span ``exec.result``."""
+    alone; it counts the ``bytes`` copied off a CUDA device and
+    ``pinned_new``, the blocks the pinned pool had to create for them."""
     ops_dev = [torch.from_numpy(a).to(device) for a in row_ops]
     R_pad = sum(sizes)
+    reach_all = torch.empty((R_pad, width), dtype=torch.int32, device=device)
     db_all = torch.zeros(R_pad, dtype=torch.int64, device=device)
     rows_all = torch.zeros(R_pad, dtype=torch.int64, device=device)
-    reach_all = None
     converged = True
     b0 = 0
     for blk in sizes:
         F, db, rows, ok = fn(*(a[b0:b0 + blk] for a in ops_dev))
-        if reach_all is None:
-            reach_all = torch.empty((R_pad, F.shape[1]), dtype=F.dtype,
-                                    device=device)
-        reach_all[b0:b0 + blk] = F
+        reach_all[b0:b0 + blk] = F[:, :width]
         db_all[b0:b0 + blk] = db
         rows_all[b0:b0 + blk] = rows
         converged = converged and ok
@@ -785,13 +791,16 @@ def _run_blocks(fn, sizes: Sequence[int], row_ops: Sequence[np.ndarray],
     if not converged:
         raise RuntimeError("closure did not converge within max_closure_iters")
     met = torch.stack([db_all[:R], rows_all[:R]])
+    dst = new = None
+    if reach_all.is_cuda:
+        dst, new = pinned_empty((R, width), torch.int32)
     trace.settle(device)
     with trace.span("exec.pull"):
-        reach, met = host(reach_all[:R, :width], met)
-        if reach_all.is_cuda:
+        reach, met = host(reach_all[:R], met, out=dst)
+        if dst is not None:
             trace.add("bytes", reach.nbytes + met.nbytes)
-    with trace.span("exec.result"):
-        return reach.astype(np.int32), met[0], met[1]
+            trace.add("pinned_new", new)
+    return reach, met[0], met[1]
 
 
 # ---------------------------------------------------------------------------

@@ -28,7 +28,7 @@ tracing is on, so that the span after it holds its own work alone.
 
 **Cost when off.**  :func:`span` returns one shared do-nothing context:
 one flag test and one store, with no allocation and no clock read.
-:func:`add` and :func:`settle` are one flag test.
+:func:`add`, :func:`settle` and :func:`on` are one flag test.
 
 The read and write paths run on the caller's thread, and spans nest on one
 stack: spans of concurrent threads would nest wrongly.
@@ -111,6 +111,11 @@ def span(name: str, **attrs):
         rec = Span(name, len(_records), None, _requests, attrs)
     _records.append(rec)
     return rec
+
+
+def on() -> bool:
+    """Is tracing on: does a profiler record?"""
+    return _profiler._is_profiler_enabled
 
 
 def settle(device) -> None:

@@ -19,6 +19,7 @@ import repro.core.plan as r_plan
 import repro_torch.core as P
 import repro_torch.core.executor as p_ex
 import repro_torch.core.plan as p_plan
+from repro_torch.utils import host
 
 # plans sharing a structure in groups: one hop (labels, direction and
 # predicates differ), two hop ranges, closures, and both directions
@@ -37,7 +38,7 @@ QUERIES = [
 ]
 
 
-def build(pkg, seed=0, n=20):
+def build(pkg, seed=0, n=20, cfg=None):
     rng = np.random.default_rng(seed)
     schema = pkg.GraphSchema()
     b = pkg.GraphBuilder(schema)
@@ -49,7 +50,8 @@ def build(pkg, seed=0, n=20):
                 b.add_edge(u, v, ("x", "y")[int(rng.integers(2))],
                            props={"w": int(rng.integers(0, 5))})
     kw = {"device": "cpu"} if pkg is P else {}
-    return pkg.GraphSession(b.finalize(edge_cap=1024, **kw), schema, **kw)
+    return pkg.GraphSession(b.finalize(edge_cap=1024, **kw), schema, cfg,
+                            **kw)
 
 
 def plans(sess, pkg):
@@ -189,3 +191,65 @@ def test_shared_program_matches_solo_and_reference(adaptive):
                 ctx = f"{QUERIES[i]} binding {j}"
                 same_rows(got[m][j], solo[j], ctx)
                 same_rows(got[m][j], want[m][j], ctx)
+
+
+# -- the batch pull's result -------------------------------------------------
+
+COUNTING_READ = QUERIES[4]       # a finite hop range: walk counts, int32 F
+SET_READ = QUERIES[6]            # an unbounded one: reachability, bool F
+
+
+@pytest.mark.parametrize("backend", ["segment", "dense"])
+@pytest.mark.parametrize("q", [COUNTING_READ, SET_READ])
+def test_a_reads_rows_are_one_dense_int32_array(q, backend):
+    """A read's ``reach`` is one C-contiguous int32 ``[S, node_cap]`` array
+    equal to the reference's, for a counting read and a set-semantics
+    read, whose bool frontier is widened on the device."""
+    ps = build(P, seed=5, cfg=P.ExecConfig(backend=backend))
+    got, want = ps.query(q), build(R, seed=5).query(q)
+    assert got.counting == (q == COUNTING_READ)
+    assert got.reach.dtype == np.int32 and got.reach.flags.c_contiguous
+    assert got.reach.shape == (got.src_ids.shape[0], ps.g.node_cap)
+    np.testing.assert_array_equal(got.src_ids, np.asarray(want.src_ids))
+    np.testing.assert_array_equal(got.reach, np.asarray(want.reach))
+
+
+def test_results_of_two_reads_share_no_memory():
+    """Each read's rows are its own: two reads of one plan share no memory,
+    and a result kept across later reads is unchanged by them."""
+    ps = build(P, seed=6)
+    kept = ps.query(COUNTING_READ)
+    copy = kept.reach.copy()
+    later = [ps.query(q) for q in (COUNTING_READ, SET_READ, COUNTING_READ)]
+    for r in later:
+        assert not np.shares_memory(kept.reach, r.reach)
+    assert not np.shares_memory(later[0].reach, later[2].reach)
+    np.testing.assert_array_equal(kept.reach, copy)
+    plan = ps.planner.plan(P.parse_query(COUNTING_READ), [], 0)[0]
+    a, b = plan.execute_rows([plan.default_sources()] * 2)
+    assert not np.shares_memory(a.reach, b.reach)   # rows of one batch
+    assert a.reach.flags.c_contiguous and b.reach.flags.c_contiguous
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_sharded_rows_pull_once_and_match(shards):
+    """Sharded F carries pad columns; the batch is cut to ``node_cap``
+    columns on the device and still pulled by one counted call, equal to
+    the unsharded port's and the reference's rows."""
+    one = build(P, seed=7)
+    many = build(P, seed=7, cfg=P.ExecConfig(data_shards=shards))
+    ref = build(R, seed=7)
+    for q in (COUNTING_READ, SET_READ, QUERIES[10]):
+        a = one.planner.plan(P.parse_query(q), [], 0)[0]
+        b = many.planner.plan(P.parse_query(q), [], 0)[0]
+        srcs = [a.default_sources(), np.arange(9, dtype=np.int32)]
+        b.execute_rows(srcs)                               # warm the caches
+        h0 = host.calls
+        got = b.execute_rows(srcs)
+        assert host.calls - h0 == 1, q
+        want = ref.planner.plan(R.parse_query(q), [], 0)[0].execute_rows(srcs)
+        for rp, ra, rr in zip(got, a.execute_rows(srcs), want):
+            assert rp.reach.dtype == np.int32 and rp.reach.flags.c_contiguous
+            assert rp.reach.shape == (len(rp.sources), one.g.node_cap)
+            same_rows(rp, ra, q)
+            np.testing.assert_array_equal(rp.reach, np.asarray(rr.reach), q)

@@ -34,7 +34,7 @@ READS = ("MATCH (s:A)-[:x*1..]->(d) RETURN s, d",
          "MATCH (s:A)-[:x]->(m:B)-[:x]->(d) RETURN s, d")
 
 
-def session():
+def session(device="cpu"):
     """Chains a-b-a-b... of 2 to 9 nodes with skip edges, two views."""
     schema = P.GraphSchema()
     b = P.GraphBuilder(schema)
@@ -47,8 +47,8 @@ def session():
             if i + 2 < length:
                 b.add_edge(nid + i, nid + i + 2, "x")
         nid += length
-    sess = P.GraphSession(b.finalize(edge_cap=256, device="cpu"), schema,
-                          device="cpu")
+    sess = P.GraphSession(b.finalize(edge_cap=256, device=device), schema,
+                          device=device)
     for v in VIEWS:
         sess.create_view(v)
     return sess
@@ -115,8 +115,52 @@ def test_a_read_is_one_root_with_its_stages(q):
         root.end_ns - root.start_ns
     (pull,) = [r for r in kids if r.name == "exec.pull"]
     assert "bytes" not in pull.attrs           # no copy off a host tensor
+    assert "pinned_new" not in pull.attrs      # nor into page-locked memory
     # the pulls by span add up to the port's own counters over the read
     assert sum(r.attrs.get("pulls", 0) for r in recs) == n_pulls
+
+
+@pytest.mark.cuda
+def test_a_card_reads_pull_counts_the_pinned_blocks_it_made():
+    """On a card the pull span carries ``pinned_new``: the blocks the pinned
+    pool created for the rows, none for a read of the same shape once the
+    first one's result is gone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sess = session("cuda")
+    sess.query(READS[0], use_views=True)                   # warm the caches
+    _, recs, _ = traced(lambda: sess.query(READS[0], use_views=True))
+    (pull,) = [r for r in recs if r.name == "exec.pull"]
+    assert pull.attrs["pinned_new"] >= 0 and pull.attrs["bytes"] > 0
+    sess.query(READS[0], use_views=True)            # untraced: ends a stretch
+    _, recs, _ = traced(lambda: sess.query(READS[0], use_views=True))
+    (pull,) = [r for r in recs if r.name == "exec.pull"]
+    assert pull.attrs["pinned_new"] == 0
+
+
+def reader(name):
+    from mvbench import harness
+    return harness.plugin("metrics", name, ROOT, ["mvbench"])
+
+
+def test_pinned_new_reader_reads_nothing_without_card_spans():
+    """``exec.pinned_new_per_read.analytic`` reads None over a host read's
+    spans, and the blocks over the reads where the pulls carry them."""
+    read = reader("exec.pinned_new_per_read.analytic").read
+    sess = session()
+    traced(lambda: sess.query(READS[1], use_views=True))
+    assert read({}) is None
+
+    def reads(news):
+        for n in news:
+            with trace.span("session.query"):
+                with trace.span("exec.pull"):
+                    trace.add("pinned_new", n)
+    for news, want in (([1, 0, 2, 0], 0.75), ([0, 0], 0)):
+        with trace.span("untraced"):              # ends the last stretch
+            pass
+        traced(lambda: reads(news))
+        assert read({}) == want
 
 
 def test_a_fence_is_one_root_with_a_span_a_view():
@@ -250,3 +294,4 @@ def test_readers_on_the_tiny_cells(tmp_path, name):
     assert 0 < got["maint.view_ms_per_fence.analytic"] <= \
         got["maint.ms_per_fence.analytic"]
     assert "exec.dtoh_gbps.analytic" not in got
+    assert "exec.pinned_new_per_read.analytic" not in got
