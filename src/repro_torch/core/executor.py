@@ -39,7 +39,7 @@ from repro_torch.core.pattern import (
 )
 from repro_torch.core.schema import GraphSchema, NO_LABEL
 from repro_torch.kernels.ref import matmul_f32
-from repro_torch.utils import INF_HOPS, host, round_up
+from repro_torch.utils import INF_HOPS, host, host_flag, round_up, trace
 
 
 @dataclass
@@ -653,23 +653,36 @@ class PathExecutor:
 
     # -- primitive hop ----------------------------------------------------
 
-    def _hop(self, F, rel_label_id: int, direction: Direction, counting: bool,
-             metrics: Metrics, preds: Tuple[PropPred, ...] = ()):
+    def _hop_ops(self, rel_label_id: int, direction: Direction,
+                 counting: bool, preds: Tuple[PropPred, ...] = ()):
+        """One hop's operands, fetched (and built, on a cache miss) once for
+        a whole hop range: ``(reverse, degrees or None, the dense adjacency
+        or the label's edges)`` a direction."""
         dirs = ([False] if direction is Direction.OUT
                 else [True] if direction is Direction.IN
                 else [False, True])
         eng = self.engine
-        out = None
+        ops = []
         for rev in dirs:
-            if self.cfg.collect_metrics:
-                metrics.db_hits += int(_hop_cost(
-                    F, eng.deg(rel_label_id, rev, preds)))
+            deg = (eng.deg(rel_label_id, rev, preds)
+                   if self.cfg.collect_metrics else None)
             if self.cfg.backend == "dense":
-                A = eng.adj(rel_label_id, counting, rev, preds)
-                hop = _hop_kernel if self.cfg.use_kernel else _hop_dense
-                nxt = hop(F, A, counting=counting)
+                arg = eng.adj(rel_label_id, counting, rev, preds)
             else:
-                esrc, edst, ew, emask = eng.label_edges(rel_label_id, preds)
+                arg = eng.label_edges(rel_label_id, preds)
+            ops.append((rev, deg, arg))
+        return ops
+
+    def _hop(self, F, ops, counting: bool, metrics: Metrics):
+        out = None
+        for rev, deg, arg in ops:
+            if deg is not None:
+                metrics.db_hits += int(_hop_cost(F, deg))
+            if self.cfg.backend == "dense":
+                hop = _hop_kernel if self.cfg.use_kernel else _hop_dense
+                nxt = hop(F, arg, counting=counting)
+            else:
+                esrc, edst, ew, emask = arg
                 nxt = _hop_segment(F, esrc, edst, emask, ew,
                                    counting=counting, reverse=rev)
             out = nxt if out is None else (out + nxt if counting else out | nxt)
@@ -692,19 +705,20 @@ class PathExecutor:
         lid = self.schema.edge_label_id(rel.label)
         preds = normalize_preds(rel.preds)
         lo, hi = rel.min_hops, rel.max_hops
+        ops = (self._hop_ops(lid, rel.direction, counting, preds)
+               if hi != 0 else [])
         if hi != INF_HOPS:
             # bounded: acc = sum/or over k in [lo, hi] (lo may be 0: identity)
             acc = F if lo == 0 else None
             cur = F
             for k in range(1, hi + 1):
-                cur = self._hop(cur, lid, rel.direction, counting, metrics,
-                                preds)
+                cur = self._hop(cur, ops, counting, metrics)
                 if k >= lo:
                     if acc is None:
                         acc = cur
                     else:
                         acc = acc + cur if counting else acc | cur
-                if not counting and not bool(cur.any()):
+                if not counting and not host_flag(cur.any()):
                     break
             return acc if acc is not None else torch.zeros_like(F)
         # unbounded: boolean reach only (counting of infinite walk families
@@ -712,18 +726,22 @@ class PathExecutor:
         assert not counting
         cur = F
         for _ in range(max(lo, 0)):
-            cur = self._hop(cur, lid, rel.direction, False, metrics, preds)
+            cur = self._hop(cur, ops, False, metrics)
         reach = cur
         frontier = cur
-        for _ in range(self.cfg.max_closure_iters):
-            if not bool(frontier.any()):
-                break
-            nxt = self._hop(frontier, lid, rel.direction, False, metrics,
-                            preds)
-            frontier = nxt & ~reach
-            reach = reach | nxt
-        else:
-            raise RuntimeError("closure did not converge within max_closure_iters")
+        # traced: the span ``exec.closure``, ``iters`` the hops it ran and
+        # its flag reads its ``pulls``
+        with trace.span("exec.closure", iters=0):
+            for _ in range(self.cfg.max_closure_iters):
+                if not host_flag(frontier.any()):
+                    break
+                nxt = self._hop(frontier, ops, False, metrics)
+                frontier = nxt & ~reach
+                reach = reach | nxt
+                trace.add("iters", 1)
+            else:
+                raise RuntimeError(
+                    "closure did not converge within max_closure_iters")
         return reach
 
     # -- public API --------------------------------------------------------

@@ -346,7 +346,9 @@ def _expand_range(F, db, rows, lo: int, hi: int, hop, cost, counting: bool,
     frontiers are pairwise disjoint with union equal to the converged reach
     set, so the closure's DBHit telescopes to one ``cost(reach)``; a
     non-converged exit over-counts the residual frontier, but the caller
-    raises before it surfaces.  Returns ``(F, db, rows, converged)``."""
+    raises before it surfaces.  Traced, the unbounded loop is the span
+    ``exec.closure``: ``iters`` the hops it ran, its flag reads its
+    ``pulls``.  Returns ``(F, db, rows, converged)``."""
     if hi != INF_HOPS:
         acc = F if lo == 0 else None
         cur = F
@@ -362,17 +364,19 @@ def _expand_range(F, db, rows, lo: int, hi: int, hop, cost, counting: bool,
         cur, db, rows = hop(cur, db, rows)
     reach, frontier = cur, cur
     i, stride = 0, 1
-    converged = max_iters > 0 or not host_flag(_any_active(frontier))
-    while i < max_iters:
-        n = min(stride, max_iters - i)
-        for _ in range(n):
-            nxt, db, rows = hop(frontier, db, rows, skip_db=True)
-            reach, frontier = reach | nxt, nxt & ~reach
-        i += n
-        converged = not host_flag(_any_active(frontier))
-        if converged:
-            break
-        stride = CLOSURE_SYNC_EVERY
+    with trace.span("exec.closure", iters=0):
+        converged = max_iters > 0 or not host_flag(_any_active(frontier))
+        while i < max_iters:
+            n = min(stride, max_iters - i)
+            for _ in range(n):
+                nxt, db, rows = hop(frontier, db, rows, skip_db=True)
+                reach, frontier = reach | nxt, nxt & ~reach
+            i += n
+            trace.add("iters", n)
+            converged = not host_flag(_any_active(frontier))
+            if converged:
+                break
+            stride = CLOSURE_SYNC_EVERY
     if collect:
         db = db + cost(reach)
     return reach, db, rows, converged

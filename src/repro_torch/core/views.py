@@ -621,7 +621,8 @@ class GraphSession:
         in batch order.
 
         Traced, the call is the root span ``maint.apply`` and each view's
-        maintenance a ``maint.view`` span under it, named by ``view``.
+        maintenance a ``maint.view`` span under it, named by ``view``, its
+        ``unbounded`` 1 where the view's match has an unbounded hop range.
         """
         with trace.span("maint.apply"):
             return self._apply_writes(batch)
@@ -804,7 +805,8 @@ class GraphSession:
 
         # -- per-view maintenance: one grouped pass per (view, label)
         for view in self.views.values():
-            with trace.span("maint.view", view=view.name):
+            with trace.span("maint.view", view=view.name,
+                            unbounded=int(not view.counting)):
                 if dead_set:
                     # index purge stays synchronous for every policy: arena
                     # edges incident to deleted nodes are already dead, and

@@ -106,7 +106,9 @@ def test_a_read_is_one_root_with_its_stages(q):
     (root,) = [r for r in recs if r.parent is None]
     assert root.name == "session.query"
     kids = children(recs, root)
-    assert {r.name for r in kids} == READ_CHILDREN
+    # an unbounded hop range runs its closure between preparation and pull
+    closure = {"exec.closure"} if "*1.." in q else set()
+    assert {r.name for r in kids} == READ_CHILDREN | closure
     assert len(kids) == len(recs) - 1          # every span is a child
     assert {r.request for r in recs} == {root.request}
     for r in kids:
@@ -295,3 +297,96 @@ def test_readers_on_the_tiny_cells(tmp_path, name):
         got["maint.ms_per_fence.analytic"]
     assert "exec.dtoh_gbps.analytic" not in got
     assert "exec.pinned_new_per_read.analytic" not in got
+
+
+UNBOUNDED_READERS = ("maint.unbounded_view_ms_per_fence.snb",
+                     "maint.closure_share.snb",
+                     "maint.closure_flags_per_fence.snb")
+
+
+def fences(spec):
+    """Record fences by hand: each a list of ``(view, unbounded, closures)``
+    with ``closures`` a list of ``(pulls, nested pulls or None)``; then set
+    every span's times: a fence 10 ms, a view 4 ms, a closure 1 ms, a
+    nested one 0.5 ms, fences 20 ms apart."""
+    with trace.span("untraced"):                  # ends the last stretch
+        pass
+    with profile(activities=[ProfilerActivity.CPU]):
+        for views in spec:
+            with trace.span("maint.apply"):
+                for name, unb, closures in views:
+                    attrs = {"view": name}
+                    if unb is not None:
+                        attrs["unbounded"] = unb
+                    with trace.span("maint.view", **attrs):
+                        for pulls, inner in closures:
+                            with trace.span("exec.closure", iters=0):
+                                trace.add("pulls", pulls)
+                                if inner is not None:
+                                    with trace.span("exec.closure", iters=0):
+                                        trace.add("pulls", inner)
+        with trace.span("session.query"):         # a read: not a fence
+            with trace.span("exec.closure", iters=0):
+                trace.add("pulls", 100)
+    recs = trace.spans()
+    ms = {"maint.apply": 10, "maint.view": 4, "session.query": 10}
+    t = 0
+    for r in recs:
+        if r.parent is None:
+            t += 20_000_000
+        nested = r.parent is not None and recs[r.parent].name == "exec.closure"
+        dur = (0.5 if nested else 1) if r.name == "exec.closure" \
+            else ms[r.name]
+        r.start_ns, r.end_ns = t, t + int(dur * 1e6)
+
+
+def test_unbounded_view_readers_by_hand():
+    """The three readers of an unbounded view's maintenance over fences
+    recorded by hand; nothing where the views carry no ``unbounded``."""
+    read = {n: reader(n).read for n in UNBOUNDED_READERS}
+    fences([[("ROOT_POST", 1, [(3, None), (2, 4)]), ("KNOWS2", 0, [])],
+            [("ROOT_POST", 1, []), ("COMMENT_TAG", 0, [(5, None)])]])
+    got = {n: f({}) for n, f in read.items()}
+    assert got["maint.unbounded_view_ms_per_fence.snb"] == \
+        pytest.approx(4.0)                        # 2 x 4 ms over 2 fences
+    # outermost closures 3 x 1 ms over 20 ms of fences; the read's is out
+    assert got["maint.closure_share.snb"] == pytest.approx(15.0)
+    assert got["maint.closure_flags_per_fence.snb"] == \
+        pytest.approx((3 + 2 + 4 + 5) / 2)
+    fences([[("ROOT_POST", None, [(3, None)])]])  # a program without it
+    assert all(f({}) is None for f in read.values())
+    traced(lambda: session().query(READS[0], use_views=True))   # no fence
+    assert all(f({}) is None for f in read.values())
+
+
+def test_unbounded_view_readers_on_the_tiny_snb_cell(tmp_path):
+    """The three readers over a traced run of the ``snb-analytic`` cell
+    at a hundredth of its size on the CPU, as ``BENCHMARK.json`` scores
+    them: its first pass's DE and DV keep ``ROOT_POST`` through the
+    closure, and every closure reads a flag."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "mvbench_tests_conftest", ROOT / "mvbench" / "tests" / "conftest.py")
+    conftest = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(conftest)
+    from mvbench import harness
+    cell = harness.load_cell("snb-analytic", conftest.shrink(tmp_path))
+    assert set(UNBOUNDED_READERS) <= {m["name"] for m in cell.per_layer}
+    out = harness.run_cell(cell, 2 ** 31 + 23, 1.0, True, "cpu")
+    assert out["correct"], out["checks"]
+    got = {k: v["value"] for k, v in out["metrics"].items()}
+    recs = trace.spans()
+    root_of = []
+    for r in recs:
+        root_of.append(r.index if r.parent is None else root_of[r.parent])
+    closures = [r for r in recs if r.name == "exec.closure"
+                and recs[root_of[r.index]].name == "maint.apply"]
+    n_fences = sum(r.name == "maint.apply" for r in recs)
+    assert closures and n_fences == 7
+    assert got["maint.closure_flags_per_fence.snb"] == pytest.approx(
+        sum(r.attrs["pulls"] for r in closures) / n_fences)
+    assert got["maint.closure_flags_per_fence.snb"] >= \
+        len(closures) / n_fences
+    assert 0 < got["maint.closure_share.snb"] < 100
+    assert 0 < got["maint.unbounded_view_ms_per_fence.snb"] <= \
+        got["maint.view_ms_per_fence.analytic"]
