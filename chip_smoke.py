@@ -445,11 +445,11 @@ def device_ms(fn, kernel: str = "", iters: int = 20,
 
 
 def reset_launches(ops) -> None:
-    for fn in (ops.block_spmm, ops.segment_multi_agg, ops.flash_attention):
+    for fn in (ops.block_spmm, ops.spmm_slab_map, ops.segment_multi_agg,
+               ops.flash_attention):
         fn.launches = 0
     for fn in (ops.block_spmm, ops.flash_attention):
         fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
-    ops.block_spmm.slabs = 0
 
 
 def nvidia_smi() -> str:
@@ -499,6 +499,93 @@ def wide_cases(dev) -> dict:
         out[name] = (torch.from_numpy(f.astype(np.int32)).to(dev),
                      torch.from_numpy(a.astype(np.int32)).to(dev), n_slow)
     return out
+
+
+def finbench_like_adjacency(K: int, tile: tuple, dev) -> tuple:
+    """An int32 [K, K] adjacency shaped as one of FinBench's: node ids
+    contiguous by label, every edge inside one label block (the second
+    quarter of the ids) from a source to 1 + zipf(1.8) ids past it, so
+    the live tiles hug the diagonal, most column blocks hold no edge and
+    lists end in -1 tails; one far transfer, from the block's first id to
+    its last, leaves a gap in its column block's list; one edge weighs 300,
+    so one tile needs the CUDA cores.  Returns (A, the (slab, column
+    block) of that tile)."""
+    g = np.random.default_rng(2)
+    lo, hi = K // 4, K // 2
+    src = g.integers(lo, hi - 1, 20000)
+    dst = np.minimum(src + g.zipf(1.8, src.shape[0]), hi - 1)
+    A = torch.zeros((K, K), dtype=torch.int32, device=dev)
+    A.index_put_((torch.from_numpy(src).to(dev), torch.from_numpy(dst).to(
+        dev)), torch.ones(src.shape[0], dtype=torch.int32, device=dev),
+        accumulate=True)
+    A[lo, hi - 1] += 1
+    A[int(src[0]), int(dst[0])] = 300
+    _, bn, bk = tile
+    return A, (int(src[0]) // bk, int(dst[0]) // bn)
+
+
+def spmm_sparse_checks(ops, ref, F, mask) -> dict:
+    """The walk the main path runs: a FinBench-like A at the workload
+    shape (``finbench_like_adjacency``).  The kernels' slab map equals the
+    plain twin's; the hop over it equals the plain version bit for bit in
+    count/bool x mask/no mask, with the tile above 255 alone on the CUDA
+    cores; a map given is used, and an A without one gets one built in the
+    call.  Times the walk with its map and the map's build."""
+    S, K = F.shape
+    dev = F.device
+    A, (bad_slab, bad_cb) = finbench_like_adjacency(K, ops.SPMM_TILE, dev)
+    n0 = ops.spmm_slab_map.launches
+    smap = ops.spmm_slab_map(A)
+    check(ops.spmm_slab_map.launches == n0 + 1,
+          "spmm_slab_map did not count its launch")
+    slabs, counts = ref.spmm_slab_map_ref(A)
+    check(torch.equal(smap.slabs, slabs) and torch.equal(smap.counts, counts),
+          "the kernels' slab map != the plain twin at the workload shape")
+    n_cb, n_slabs = smap.slabs.shape
+    lists = [smap.slabs[cb, :int(counts[cb])].tolist() for cb in range(n_cb)]
+    live = int(counts.sum())
+    check(0 < live < smap.tiles and int((counts == 0).sum()) > 0
+          and any(ls and ls != list(range(ls[0], ls[0] + len(ls)))
+                  for ls in lists)
+          and bad_slab in lists[bad_cb],
+          f"the FinBench-like A lacks an empty column block, a list with a "
+          f"gap or its tile above 255: counts {counts.tolist()}")
+    slow = ops.spmm_slow_slabs(dev)
+    row_blocks = -(-S // ops.SPMM_TILE[0])
+    n0 = ops.spmm_slab_map.launches
+    for counting in (True, False):
+        for m in (None, mask):
+            semiring = "count" if counting else "bool"
+            out_dtype = torch.int32 if counting else torch.uint8
+            slow.zero_()
+            got = ops.block_spmm(F, A, m, counting=counting,
+                                 out_dtype=out_dtype, slab_map=smap)
+            want = ref.block_spmm_ref(F, A, m, semiring=semiring)
+            torch.cuda.synchronize()
+            check(got.dtype == out_dtype
+                  and torch.equal(got.to(torch.float32), want),
+                  f"block_spmm over its slab map != plain on the "
+                  f"FinBench-like A ({semiring}, mask={m is not None})")
+            check(int(slow) == row_blocks,
+                  f"FinBench-like A ({semiring}): {int(slow)} slabs on the "
+                  f"CUDA cores, expected {row_blocks}")
+    check(ops.spmm_slab_map.launches == n0,
+          "block_spmm built a map though one was given")
+    check(torch.equal(
+        ops.block_spmm(F, A, counting=True, out_dtype=torch.int32),
+        ops.block_spmm(F, A, counting=True, out_dtype=torch.int32,
+                       slab_map=smap)),
+          "block_spmm with a map built in the call != with the map given")
+    check(ops.spmm_slab_map.launches == n0 + 1,
+          "block_spmm without a map did not build one")
+    rec = {"live_tiles": live, "tiles": smap.tiles,
+           "longest_list": int(counts.max()),
+           "busy_colblocks": int((counts > 0).sum()),
+           "ms": cuda_ms(lambda: ops.block_spmm(
+               F, A, counting=True, out_dtype=torch.int32, slab_map=smap), 5),
+           "map_ms": cuda_ms(lambda: ops.spmm_slab_map(A), 5)}
+    del A, smap
+    return rec
 
 
 def spmm_fp32_split_checks(ops, ref, dev, rng) -> dict:
@@ -600,6 +687,7 @@ def spmm_checks(ops, ref) -> dict:
                       dtype=torch.int32)
     mask = (torch.rand(N, generator=gen, device=dev) < 0.5).to(torch.float32)
     Ff, Af = F.to(torch.float32), A.to(torch.float32)
+    smap = ops.spmm_slab_map(A)      # built once, as a cached adjacency's
     timings = {}
     for counting in (True, False):
         for m in (None, mask):
@@ -616,14 +704,19 @@ def spmm_checks(ops, ref) -> dict:
             key = f"{semiring}{'+mask' if m is not None else ''}"
             timings[key] = {
                 "ms": cuda_ms(lambda: ops.block_spmm(
-                    F, A, m, counting=counting, out_dtype=out_dtype), 5),
+                    F, A, m, counting=counting, out_dtype=out_dtype,
+                    slab_map=smap), 5),
                 "plain_ms": cuda_ms(lambda: ref.block_spmm_ref(
                     F, A, m, semiring=semiring), 5),
             }
     library_ms = cuda_ms(lambda: torch.matmul(Ff, Af), 5)
     log(f"phase 2: workload shape {WORKLOAD_SHAPE} exact in count/bool x "
-        f"mask/no mask; ms: " + json.dumps(timings)
+        f"mask/no mask (every tile live); ms: " + json.dumps(timings)
         + f"; torch.matmul fp32 {library_ms:.3f} ms")
+    sparse = spmm_sparse_checks(ops, ref, F, mask)
+    log(f"phase 2: FinBench-like A at {WORKLOAD_SHAPE}: slab map == plain "
+        f"twin, hop exact in count/bool x mask/no mask over it, its tile "
+        f"above 255 on the CUDA cores; " + json.dumps(sparse))
     bound_ms, bound_by = spmm_bound_ms(S, K, N)
     by_rows = {S: {"ms": timings["count"]["ms"],
                    "plain_ms": timings["count"]["plain_ms"],
@@ -647,17 +740,18 @@ def spmm_checks(ops, ref) -> dict:
             b_ms, b_by = spmm_bound_ms(rows, K, N)
             by_rows[rows] = {
                 "ms": cuda_ms(lambda: ops.block_spmm(
-                    Fs, A, counting=True, out_dtype=torch.int32), 5),
+                    Fs, A, counting=True, out_dtype=torch.int32,
+                    slab_map=smap), 5),
                 "plain_ms": cuda_ms(lambda: ref.block_spmm_ref(Fs, A), 5),
                 "bound_ms": b_ms, "bound_by": b_by}
     log(f"phase 2: S = {list(SERVE_ROWS)} at K = N = {K} exact in count/bool "
         f"x mask/no mask; count hop by S: " + json.dumps(by_rows))
-    del A, F, Ff, Af, Fs, wide
+    del A, F, Ff, Af, Fs, wide, smap
     torch.cuda.empty_cache()
     return {"max_abs_err": max_err, "ms": timings["count"]["ms"],
             "plain_ms": timings["count"]["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
-            "timings": timings, "by_rows": by_rows}
+            "timings": timings, "by_rows": by_rows, "sparse": sparse}
 
 
 # ---------------------------------------------------------------------------
@@ -1068,7 +1162,7 @@ def served_vs_sequential(served, twin, ops, what: str, kops=None) -> dict:
         rec.update(launches=kops.block_spmm.launches,
                    launches_by_route=dict(kops.block_spmm.launches_by_route),
                    slow_slabs=int(kops.spmm_slow_slabs(served.device)),
-                   slabs=kops.block_spmm.slabs)
+                   slab_maps=kops.spmm_slab_map.launches)
     seq_s = seq_read_s = 0.0
     for t, (kind, payload, src) in zip(tickets, ops):
         t0 = time.perf_counter()
@@ -3873,10 +3967,13 @@ def main() -> int:
     log_workload("phase 4: FinBench session K", fin)
     log(f"phase 4: block_spmm launches {launches - snb_launches}; "
         f"max_memory_allocated {fin['max_memory_allocated']} B")
+    slab_maps = ops.spmm_slab_map.launches
+    check(0 < slab_maps <= launches,
+          f"the main path built {slab_maps} slab maps for {launches} "
+          f"block_spmm launches")
     log(f"phases 3-4: block_spmm routes {json.dumps(spmm_routes)}; "
-        f"u8 slabs on the CUDA cores {slow_slabs} of "
-        f"{ops.block_spmm.slabs}; bound {rec['bound_ms']:.4f} ms "
-        f"({rec['bound_by']})")
+        f"slab maps built {slab_maps}; u8 slabs on the CUDA cores "
+        f"{slow_slabs}; bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
 
     t0 = time.perf_counter()
     agg = segment_phase(ops, ref)
@@ -3904,8 +4001,8 @@ def main() -> int:
     check(routes["tc"] == fin_serve["launches"],
           f"FinBench serving's block_spmm left the u8 route: {routes}")
     log(f"phase 7b: FinBench serve through block_spmm == segment twin; "
-        f"u8 slabs on the CUDA cores {fin_serve['slow_slabs']} of "
-        f"{fin_serve['slabs']}; " + json.dumps(fin_serve))
+        f"u8 slabs on the CUDA cores {fin_serve['slow_slabs']}; "
+        + json.dumps(fin_serve))
     t1 = time.perf_counter()
     online = online_phase()
     seconds["online_selection"] = time.perf_counter() - t1
@@ -3958,6 +4055,8 @@ def main() -> int:
         "ms": rec["ms"], "plain_ms": rec["plain_ms"],
         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
         "library_ms": rec["library_ms"], "checked": True,
+        "ms_finbench_like": rec["sparse"]["ms"],
+        "map_ms": rec["sparse"]["map_ms"], "slab_maps": slab_maps,
         "launches_by_route": spmm_routes, "launches_by_phase": by_phase,
         "slow_slabs": slow_slabs + fin_serve["slow_slabs"],
         "ms_by_rows": {k: v["ms"] for k, v in rec["by_rows"].items()},

@@ -191,13 +191,21 @@ def _hop_dense(F, A, *, counting: bool):
 def _hop_kernel(F, A, *, counting: bool):
     """The dense hop through the hand-written ``block_spmm`` kernel.  The
     kernel reads F and A in their own types and writes int32 counts or a
-    uint8 0/1 frontier directly (no float intermediate)."""
+    uint8 0/1 frontier directly (no float intermediate), walking only the
+    slabs of A that its slab map lists.  The map is built at A's first
+    kernel hop and kept on A as ``spmm_slab_map``: a cached adjacency is
+    never written in place, and eviction and snapshots carry the map with
+    the tensor."""
     from repro_torch.kernels import ops as kops
     F = F.contiguous()
+    smap = getattr(A, "spmm_slab_map", None)
+    if smap is None:
+        smap = A.spmm_slab_map = kops.spmm_slab_map(A)
     if counting:
-        return kops.block_spmm(F, A, counting=True, out_dtype=torch.int32)
-    return kops.block_spmm(F, A, counting=False,
-                           out_dtype=torch.uint8).view(torch.bool)
+        return kops.block_spmm(F, A, counting=True, out_dtype=torch.int32,
+                               slab_map=smap)
+    return kops.block_spmm(F, A, counting=False, out_dtype=torch.uint8,
+                           slab_map=smap).view(torch.bool)
 
 
 def _active(F):

@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels of the port, their plain versions and wrappers.
 
-  block_spmm        — semiring frontier hop ``F @ A``
-                      (CUDA C++, ``csrc/block_spmm.cu``)
+  block_spmm        — semiring frontier hop ``F @ A`` over the slabs of A
+                      that its slab map lists (CUDA C++,
+                      ``csrc/block_spmm.cu``)
   segment_multi_agg — fused PNA mean/max/min/std over bucketed messages
                       (CUDA C++, ``csrc/segment_agg.cu``); its layout step
                       ``bucketize_messages`` is plain tensor code

@@ -36,6 +36,23 @@
 //   written at the workload shape): the 213 column blocks then re-read 7 MB
 //   of F from L2 instead of 28 MB each.
 //
+//   The slab map: a block walks only the slabs of A that hold a non-zero.
+//   A tile is one 64-row slab of A by one column block of 128 columns.
+//   spmm_slab_map_kernel reads A once (one block a tile) and marks each
+//   tile that holds a non-zero; spmm_slab_list_kernel (one block a column
+//   block) writes that column block's live slabs in ascending order into a
+//   fixed-shape int16 list [n_colblocks, n_slabs], the rest -1, with an
+//   int32 count a column block.  The shapes are fixed, so no count comes
+//   back to the host.  A cached adjacency carries its map (ops.py builds it
+//   once beside the tensor); an A without one gets one built in the same
+//   call, so there is one walk: a dense A lists every slab.  The cp.async
+//   ring prefetches slab list[i + STAGES - 1]; F's range flags and the
+//   CUDA-core route are indexed by the slab's own number.  A column block
+//   with no live slab writes its zeros through the same epilogue.  Skipping
+//   an all-zero slab of A adds nothing to any sum, so the integer results
+//   are those of the dense walk, bit for bit.  A FinBench adjacency at
+//   node_cap 30,720 holds 0.7-3.8% live tiles.
+//
 //   Exactness, per slab, without a host sync.  A bool hop is always in
 //   range (F is 0/1, A is clamped to 1 by the executor).  A walk count or a
 //   view multiplicity can exceed 255.  So to_u8_kernel flags every 128-row
@@ -682,6 +699,69 @@ to_u8_kernel(const int32_t* __restrict__ F, uint8_t* __restrict__ F8,
   if (threadIdx.x == 0) flags[blockIdx.x * gridDim.y + blockIdx.y] = bad;
 }
 
+// One block a tile (blockIdx.x the slab, blockIdx.y the column block):
+// live[cb * n_slabs + slab] = does A's tile hold a non-zero?  ``vec``:
+// N % 4 == 0 and A 16-byte aligned.
+__global__ void __launch_bounds__(THREADS)
+spmm_slab_map_kernel(const int32_t* __restrict__ A,
+                     uint8_t* __restrict__ live, int K, int N, int vec) {
+  const int cc = threadIdx.x & 31, r0 = threadIdx.x >> 5;
+  const int gn = blockIdx.y * BN + 4 * cc;
+  bool nz = false;
+#pragma unroll
+  for (int i = 0; i < BK / 8; ++i) {
+    const int gk = blockIdx.x * BK + r0 + 8 * i;
+    if (gk >= K) break;
+    const int32_t* row = A + static_cast<long long>(gk) * N;
+    if (vec) {
+      if (gn < N) {
+        const int4 v = __ldcs(reinterpret_cast<const int4*>(row + gn));
+        nz |= (v.x | v.y | v.z | v.w) != 0;
+      }
+    } else {
+      for (int j = 0; j < 4 && gn + j < N; ++j) nz |= row[gn + j] != 0;
+    }
+  }
+  nz = __syncthreads_or(nz) != 0;
+  if (threadIdx.x == 0)
+    live[static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x] = nz;
+}
+
+// One block a column block: its live slabs in ascending order into
+// list[cb][0 .. count), -1 after them, and count[cb].  Each round of 256
+// slabs ranks the live ones by warp ballots and a scan of the 8 warps'
+// totals.
+__global__ void __launch_bounds__(THREADS)
+spmm_slab_list_kernel(const uint8_t* __restrict__ live,
+                      int16_t* __restrict__ list, int* __restrict__ count,
+                      int n_slabs) {
+  __shared__ int warp_total[THREADS / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const uint8_t* mine = live + static_cast<long long>(blockIdx.x) * n_slabs;
+  int16_t* out = list + static_cast<long long>(blockIdx.x) * n_slabs;
+  int total = 0;
+  for (int base = 0; base < n_slabs; base += THREADS) {
+    const int s = base + threadIdx.x;
+    const bool on = s < n_slabs && mine[s] != 0;
+    const unsigned ballot = __ballot_sync(0xffffffffu, on);
+    if (lane == 0) warp_total[warp] = __popc(ballot);
+    __syncthreads();
+    int before = total, round = 0;
+#pragma unroll
+    for (int w = 0; w < THREADS / 32; ++w) {
+      before += w < warp ? warp_total[w] : 0;
+      round += warp_total[w];
+    }
+    if (on)
+      out[before + __popc(ballot & ((1u << lane) - 1u))] =
+          static_cast<int16_t>(s);
+    total += round;
+    __syncthreads();           // warp_total is rewritten by the next round
+  }
+  for (int i = total + threadIdx.x; i < n_slabs; i += THREADS) out[i] = -1;
+  if (threadIdx.x == 0) count[blockIdx.x] = total;
+}
+
 struct Ctx {
   int S, K, N, row0, col0, tid, warp_m, warp_n, lane, n_slabs;
   bool vec_f, vec_a, f_u8;
@@ -829,12 +909,15 @@ __device__ __forceinline__ void slow_slab(const void* __restrict__ F,
 
 // F8: F as u8 (the caller's bool/uint8 F, or the pre-pass's copy of an
 // int32 F); F: the caller's F, for the CUDA-core slabs; f_flags: the
-// pre-pass's flags, or null for a uint8 F.
+// pre-pass's flags, or null for a uint8 F; slab_list, slab_count: the slab
+// map, whose list the block walks.
 template <typename TO>
 __global__ void __launch_bounds__(THREADS, 1)
 spmm_u8_kernel(const uint8_t* __restrict__ F8, const void* __restrict__ F,
                int f_u8, const int* __restrict__ f_flags,
                const int32_t* __restrict__ A,
+               const int16_t* __restrict__ slab_list,
+               const int* __restrict__ slab_count,
                const float* __restrict__ col_mask, TO* __restrict__ out,
                int S, int K, int N, int bool_mode, int vec_f, int vec_a,
                unsigned long long* __restrict__ slow_slabs) {
@@ -865,33 +948,38 @@ spmm_u8_kernel(const uint8_t* __restrict__ F8, const void* __restrict__ F,
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[t][mt][nt][e] = 0;
 
+  // this column block's live slabs: list[0 .. n), ascending
+  const int16_t* list =
+      slab_list + static_cast<long long>(blockIdx.y) * c.n_slabs;
+  const int n = slab_count[blockIdx.y];
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < c.n_slabs)
-      fetch_slab(F8, A, c, s * BK, smem + s * Smem::STAGE);
+    if (s < n)
+      fetch_slab(F8, A, c, __ldg(list + s) * BK, smem + s * Smem::STAGE);
     cp_async_commit();
   }
-  for (int s = 0; s < c.n_slabs; ++s) {
+  for (int s = 0; s < n; ++s) {
     cp_async_wait<STAGES - 2>();   // this thread's copies of slab s landed
     __syncthreads();               // everyone's; slab s-1 is fully consumed
     const int next = s + STAGES - 1;
-    if (next < c.n_slabs)
-      fetch_slab(F8, A, c, next * BK,
-                     smem + (next % STAGES) * Smem::STAGE);
+    if (next < n)
+      fetch_slab(F8, A, c, __ldg(list + next) * BK,
+                 smem + (next % STAGES) * Smem::STAGE);
     cp_async_commit();
+    const int ks = __ldg(list + s);   // the slab's own number
     bool f_bad = false;
     if (f_flags) {
 #pragma unroll
       for (int t = 0; t < RT; ++t)
         if (c.row0 + t * BM < S)
-          f_bad |= f_flags[(blockIdx.x * RT + t) * c.n_slabs + s] != 0;
+          f_bad |= f_flags[(blockIdx.x * RT + t) * c.n_slabs + ks] != 0;
     }
     const bool bad = convert_slab(
         smem + (s % STAGES) * Smem::STAGE, Fs, As, c, f_bad);
     if (!bad) {
       mma_slab(Fs, As, c, acc);
     } else {
-      slow_slab(F, A, c, s * BK, acc);
+      slow_slab(F, A, c, ks * BK, acc);
       if (c.tid == 0) atomicAdd(slow_slabs, 1ull);
     }
   }
@@ -928,6 +1016,8 @@ struct Args {
   int f_u8;
   const int* f_flags;
   const int32_t* A;
+  const int16_t* slab_list;
+  const int* slab_count;
   const float* mask;
   void* out;
   int S, K, N, bool_mode, vec_f, vec_a;
@@ -943,7 +1033,8 @@ int launch(const Args& a, cudaStream_t st) {
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.S + RT * BM - 1) / (RT * BM), (a.N + BN - 1) / BN);
   spmm_u8_kernel<TO><<<grid, THREADS, bytes, st>>>(
-      a.F8, a.F, a.f_u8, a.f_flags, a.A, a.mask, static_cast<TO*>(a.out),
+      a.F8, a.F, a.f_u8, a.f_flags, a.A, a.slab_list, a.slab_count, a.mask,
+      static_cast<TO*>(a.out),
       a.S, a.K, a.N, a.bool_mode, a.vec_f, a.vec_a, a.slow);
   return 0;
 }
@@ -968,23 +1059,53 @@ int launch_out(const Args& a, int o_dt, cudaStream_t st) {
 // returns the cudaGetLastError() code of the launch, or -1 for an
 // unsupported type code.
 
-// Integer operands: F int32 or uint8 (f_dt), A int32.  An int32 F is
-// first converted to u8 into ``f8`` ([S, K] bytes) with one range flag per
-// 128-row tile and 64-deep K slab in ``flags`` (int32, ceil(S/128) *
+// The slab map of an int32 A [K, N]: ``live`` is a workspace of
+// ceil(N/128) * ceil(K/64) bytes, ``slab_list`` int16 [ceil(N/128),
+// ceil(K/64)] and ``slab_count`` int32 [ceil(N/128)] (see the header).
+extern "C" int block_spmm_slab_map_launch(const void* A, int K, int N,
+                                          void* live, void* slab_list,
+                                          void* slab_count, void* stream) {
+  if (N == 0) return 0;
+  if (!slab_count || (K > 0 && (!live || !slab_list))) return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n_slabs = (K + u8::BK - 1) / u8::BK;
+  const int n_cb = (N + u8::BN - 1) / u8::BN;
+  if (n_slabs > 32767 || n_cb > 65535) return -1;
+  if (K > 0) {
+    u8::spmm_slab_map_kernel<<<dim3(n_slabs, n_cb), u8::THREADS, 0, st>>>(
+        static_cast<const int32_t*>(A), static_cast<uint8_t*>(live), K, N,
+        N % 4 == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  u8::spmm_slab_list_kernel<<<n_cb, u8::THREADS, 0, st>>>(
+      static_cast<const uint8_t*>(live), static_cast<int16_t*>(slab_list),
+      static_cast<int*>(slab_count), n_slabs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Integer operands: F int32 or uint8 (f_dt), A int32 with its slab map
+// (``slab_list``, ``slab_count``: block_spmm_slab_map_launch's).  An int32 F
+// is first converted to u8 into ``f8`` ([S, K] bytes) with one range flag
+// per 128-row tile and 64-deep K slab in ``flags`` (int32, ceil(S/128) *
 // ceil(K/64)).  ``slow_slabs`` is a device uint64 that gains one for each
 // (block, slab) that ran on the CUDA cores because a value lay outside
 // 0..255.
 extern "C" int block_spmm_u8_launch(const void* F, int f_dt, const void* A,
+                                    const void* slab_list,
+                                    const void* slab_count,
                                     const void* col_mask, void* out,
                                     int o_dt, int S, int K, int N,
                                     int bool_mode, void* f8, void* flags,
                                     void* slow_slabs, void* stream) {
   if (S == 0 || N == 0) return 0;
-  if (!slow_slabs) return -1;
+  if (!slow_slabs || !slab_count || (K > 0 && !slab_list)) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   u8::Args a;
   a.F = F;
   a.A = static_cast<const int32_t*>(A);
+  a.slab_list = static_cast<const int16_t*>(slab_list);
+  a.slab_count = static_cast<const int*>(slab_count);
   a.mask = static_cast<const float*>(col_mask);
   a.out = out;
   a.S = S;

@@ -3,12 +3,13 @@
 A wrapper takes the plain version (``ref.py``) only when its tensors lie on
 the CPU.  For CUDA tensors it launches the kernel or raises — there is no
 fallback.  Each wrapper counts its launches in an integer attribute
-(``block_spmm.launches``, ``segment_multi_agg.launches``,
-``flash_attention.launches``) so a run can show that the main path went
+(``block_spmm.launches``, ``spmm_slab_map.launches``,
+``segment_multi_agg.launches``, ``flash_attention.launches``) so a run can show that the main path went
 through the kernel.  ``block_spmm`` and ``flash_attention`` pick a route by
 dtype and count it in ``launches_by_route``: ``"tc"`` for the tensor cores
 (u8 for integer hops, bf16 for attention), ``"fp32"`` for the CUDA-core
-kernel that float32 operands keep.  ``bucketize_messages`` is the
+kernel that float32 operands keep.  ``spmm_slab_map`` lists the slabs of
+an integer A that the ``tc`` route walks.  ``bucketize_messages`` is the
 host-free layout step that feeds ``segment_multi_agg``.
 """
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.utils import trace
 
 # dtype codes of csrc/block_spmm.cu (enum DType)
 _DT = {torch.int32: 0, torch.uint8: 1, torch.float32: 2}
@@ -51,10 +53,14 @@ def _spmm_fns():
     lib = load("block_spmm")
     u8 = lib.block_spmm_u8_launch
     u8.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p]
+    smap = lib.block_spmm_slab_map_launch
+    smap.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                     *[ctypes.c_void_p] * 4]
     f32 = lib.block_spmm_fp32_launch
     f32.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
@@ -62,9 +68,10 @@ def _spmm_fns():
     occ = lib.block_spmm_fp32_blocks_per_sm
     occ.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                     ctypes.POINTER(ctypes.c_int)]
-    for fn in (u8, f32, occ):
+    for fn in (u8, smap, f32, occ):
         fn.restype = ctypes.c_int
-    return {"tc": u8, "fp32": f32, "fp32_blocks_per_sm": occ}
+    return {"tc": u8, "slab_map": smap, "fp32": f32,
+            "fp32_blocks_per_sm": occ}
 
 
 _slow_slabs: Dict[torch.device, torch.Tensor] = {}
@@ -83,6 +90,70 @@ def spmm_slow_slabs(device) -> torch.Tensor:
         counter = torch.zeros((), dtype=torch.int64, device=dev)
         _slow_slabs[dev] = counter
     return counter
+
+
+class SlabMap:
+    """Which K slabs of an integer A [K, N] each column block of the u8
+    route walks: the tiles of ``SPMM_TILE``'s 64 rows by 128 columns that
+    hold a non-zero.  ``slabs`` int16 [n_colblocks, n_slabs] lists each
+    column block's live slabs in ascending order (then -1), ``counts`` int32
+    [n_colblocks] their number; both stay on A's device."""
+
+    __slots__ = ("slabs", "counts", "shape", "_live")
+
+    def __init__(self, slabs: torch.Tensor, counts: torch.Tensor,
+                 shape: Tuple[int, int]):
+        self.slabs, self.counts, self.shape = slabs, counts, shape
+        self._live: Optional[int] = None
+
+    def read_live(self) -> int:
+        """The number of live tiles; the first call on a CUDA map syncs."""
+        if self._live is None:
+            self._live = int(self.counts.sum())
+        return self._live
+
+    @property
+    def tiles(self) -> int:
+        """Tiles of A, live or not."""
+        return self.slabs.shape[0] * self.slabs.shape[1]
+
+
+def spmm_slab_map(A: torch.Tensor) -> SlabMap:
+    """The slab map of an int32 A, built on A's device with no host sync:
+    ``spmm_slab_map_kernel`` reads A once and marks its live tiles,
+    ``spmm_slab_list_kernel`` lists them.  The plain version on the CPU
+    (``ref.spmm_slab_map_ref``).  A must not change while the map is in use:
+    a cached adjacency, never written in place, carries its own."""
+    if A.dim() != 2 or A.dtype != torch.int32:
+        raise TypeError(f"spmm_slab_map takes an int32 [K, N] A, got "
+                        f"{A.dtype} {tuple(A.shape)}")
+    _, bn, bk = SPMM_TILE
+    K, N = A.shape
+    n_slabs, n_cb = _cdiv(K, bk), _cdiv(N, bn)
+    if n_slabs > 2 ** 15 - 1:
+        raise ValueError(f"spmm_slab_map lists slabs as int16: K = {K} "
+                         f"has {n_slabs} slabs of {bk}")
+    dev = A.device
+    if dev.type == "cpu":
+        return SlabMap(*ref.spmm_slab_map_ref(A, bk, bn), (K, N))
+    if dev.type != "cuda":
+        raise ValueError(f"spmm_slab_map runs on cpu or cuda, not {dev.type}")
+    if not A.is_contiguous():
+        raise ValueError("spmm_slab_map needs a contiguous row-major A")
+    live = torch.empty(n_cb * n_slabs, dtype=torch.uint8, device=dev)
+    slabs = torch.empty((n_cb, n_slabs), dtype=torch.int16, device=dev)
+    counts = torch.empty(n_cb, dtype=torch.int32, device=dev)
+    rc = _spmm_fns()["slab_map"](A.data_ptr(), K, N, live.data_ptr(),
+                                 slabs.data_ptr(), counts.data_ptr(),
+                                 _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"block_spmm slab map launch failed: CUDA error "
+                           f"{rc}")
+    spmm_slab_map.launches += 1
+    return SlabMap(slabs, counts, (K, N))
+
+
+spmm_slab_map.launches = 0
 
 
 class Fp32Plan(NamedTuple):
@@ -177,7 +248,8 @@ def spmm_fp32_launch_plan(F: torch.Tensor, A: torch.Tensor,
 def block_spmm(F: torch.Tensor, A: torch.Tensor,
                col_mask: Optional[torch.Tensor] = None, *,
                counting: bool = True,
-               out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+               out_dtype: torch.dtype = torch.float32,
+               slab_map: Optional[SlabMap] = None) -> torch.Tensor:
     """``semiring(F @ A) * col_mask`` — one frontier hop over a dense adjacency.
 
     F: [S, K] frontier (int32, bool/uint8 or float32), A: [K, N] adjacency
@@ -185,7 +257,9 @@ def block_spmm(F: torch.Tensor, A: torch.Tensor,
     [S, N] in ``out_dtype`` (float32, int32, or uint8 for the bool semiring).
     Integer outputs are exact while walk counts stay below 2^24.  Integer
     F and A take the u8 tensor-core route (exact; a K slab holding a value
-    outside 0..255 runs on the CUDA cores, see ``spmm_slow_slabs``).  A
+    outside 0..255 runs on the CUDA cores, see ``spmm_slow_slabs``), which
+    walks only the slabs ``slab_map`` (A's ``spmm_slab_map``) lists, built
+    here when none is given; the plain version on the CPU takes none.  A
     float32 operand takes the fp32 route: IEEE fp32 products on the CUDA
     cores (no TF32), K split over the card's SMs when the output tiles
     are few (``spmm_fp32_plan``), each split's fp32 partial written into a
@@ -200,6 +274,8 @@ def block_spmm(F: torch.Tensor, A: torch.Tensor,
     N = A.shape[1]
     if col_mask is not None and tuple(col_mask.shape) != (N,):
         raise ValueError(f"col_mask shape {tuple(col_mask.shape)} != ({N},)")
+    if slab_map is not None and slab_map.shape != (K, N):
+        raise ValueError(f"slab_map of A{slab_map.shape} for A{(K, N)}")
     if out_dtype not in _OUT_TYPES or (counting and out_dtype == torch.uint8):
         raise ValueError(f"unsupported out_dtype {out_dtype} "
                          f"(counting={counting})")
@@ -230,6 +306,11 @@ def block_spmm(F: torch.Tensor, A: torch.Tensor,
               _DT[out_dtype], S, K, N, 0 if counting else 1)
     bm, bn, bk = SPMM_TILE
     if route == "tc":
+        if slab_map is None:
+            slab_map = spmm_slab_map(A)
+        elif slab_map.counts.device != dev:
+            raise ValueError(f"slab_map on {slab_map.counts.device} for A "
+                             f"on {dev}")
         f8 = flags = None
         if F.dtype == torch.int32:
             # the kernel's u8 copy of F, and a range flag per 128 x 64 region
@@ -237,7 +318,8 @@ def block_spmm(F: torch.Tensor, A: torch.Tensor,
             flags = torch.empty(_cdiv(S, 128) * _cdiv(K, bk),
                                 dtype=torch.int32, device=dev)
         rc = _spmm_fns()["tc"](
-            F.data_ptr(), _DT[F.dtype], A.data_ptr(), *common,
+            F.data_ptr(), _DT[F.dtype], A.data_ptr(),
+            slab_map.slabs.data_ptr(), slab_map.counts.data_ptr(), *common,
             f8.data_ptr() if f8 is not None else None,
             flags.data_ptr() if flags is not None else None,
             spmm_slow_slabs(dev).data_ptr(), _stream(dev))
@@ -257,15 +339,19 @@ def block_spmm(F: torch.Tensor, A: torch.Tensor,
     block_spmm.launches += 1
     block_spmm.launches_by_route[route] += 1
     if route == "tc":
-        block_spmm.slabs += _cdiv(S, bm) * _cdiv(N, bn) * _cdiv(K, bk)
+        if trace.on():
+            # the (block, K slab) pairs walked and those a dense A has; the
+            # live total is read when the record is, not now: a read here
+            # would wait for the work queued before the map
+            row_tiles = _cdiv(S, bm)
+            trace.add_later("spmm_live_slabs",
+                            lambda: row_tiles * slab_map.read_live())
+            trace.add("spmm_dense_slabs", row_tiles * slab_map.tiles)
     return out
 
 
 block_spmm.launches = 0
 block_spmm.launches_by_route = {"tc": 0, "fp32": 0}
-#: (block, K slab) pairs the u8 route launched: the denominator of
-#: ``spmm_slow_slabs``
-block_spmm.slabs = 0
 
 
 # ---------------------------------------------------------------------------

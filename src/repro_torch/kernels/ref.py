@@ -38,6 +38,43 @@ def block_spmm_ref(F: torch.Tensor, A: torch.Tensor,
     return out
 
 
+def spmm_slab_map_ref(A: torch.Tensor, bk: int = 64, bn: int = 128
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The slab map of ``block_spmm``'s u8 route, as its two kernels write it.
+
+    A tile is one ``bk``-row slab of A [K, N] by one column block of ``bn``
+    columns; it is live if it holds a non-zero.  Returns (slabs int16
+    [n_colblocks, n_slabs]: each column block's live slabs in ascending
+    order, then -1; counts int32 [n_colblocks]).
+    """
+    K, N = A.shape
+    n_slabs, n_cb = -(-K // bk), -(-N // bn)
+    nz = torch.zeros((n_slabs * bk, n_cb * bn), dtype=torch.bool,
+                     device=A.device)
+    nz[:K, :N] = A != 0
+    live = nz.view(n_slabs, bk, n_cb, bn).any(3).any(1).T
+    order = torch.arange(n_slabs, device=A.device).expand(n_cb, n_slabs)
+    first = torch.where(live, order, order + n_slabs).sort(dim=1).values
+    slabs = torch.where(first < n_slabs, first, -1).to(torch.int16)
+    return slabs, live.sum(1).to(torch.int32)
+
+
+def spmm_slab_walk_ref(F: torch.Tensor, A: torch.Tensor, slabs: torch.Tensor,
+                       counts: torch.Tensor, bk: int = 64,
+                       bn: int = 128) -> torch.Tensor:
+    """``F @ A`` summed over the listed tiles alone, as the u8 route walks
+    them: each column block adds ``F[:, slab] @ A[slab, block]`` for its
+    first ``counts`` slabs.  Exact int64 sums [S, N]."""
+    S, N = F.shape[0], A.shape[1]
+    out = torch.zeros((S, N), dtype=torch.int64, device=F.device)
+    for cb in range(slabs.shape[0]):
+        cols = slice(cb * bn, min((cb + 1) * bn, N))
+        for ks in slabs[cb, :int(counts[cb])].tolist():
+            rows = slice(ks * bk, (ks + 1) * bk)
+            out[:, cols] += F[:, rows].long() @ A[rows, cols].long()
+    return out
+
+
 def segment_multi_agg_ref(msg: torch.Tensor, valid: torch.Tensor,
                           eps: float = 1e-5) -> Tuple[torch.Tensor, ...]:
     """PNA multi-aggregator over bucketed neighbours, in ``msg.dtype``.

@@ -26,9 +26,14 @@ them.
 not what it launched.  :func:`settle` waits for a CUDA device while
 tracing is on, so that the span after it holds its own work alone.
 
+**Counts read later.**  :func:`add_later` adds to a span a count that
+would cost a device sync to read now (the live slabs of a kernel's map);
+it is read when :func:`spans` returns the record, after the traced work.
+
 **Cost when off.**  :func:`span` returns one shared do-nothing context:
 one flag test and one store, with no allocation and no clock read.
-:func:`add`, :func:`settle` and :func:`on` are one flag test.
+:func:`add`, :func:`add_later`, :func:`settle` and :func:`on` are one flag
+test.
 
 The read and write paths run on the caller's thread, and spans nest on one
 stack: spans of concurrent threads would nest wrongly.
@@ -36,7 +41,7 @@ stack: spans of concurrent threads would nest wrongly.
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.autograd.profiler as _profiler
@@ -90,6 +95,8 @@ _records: List[Span] = []
 _open: List[Span] = []      # the open spans, innermost last
 _requests = 0
 _stale = True               # a span found tracing off since the last record
+# counts of add_later not read yet: (the span's attrs, key, count)
+_later: List[Tuple[Dict[str, object], str, Callable[[], float]]] = []
 
 
 def span(name: str, **attrs):
@@ -102,6 +109,7 @@ def span(name: str, **attrs):
     if _stale:                   # a new stretch: drop the last one's record
         _records.clear()
         _open.clear()
+        _later.clear()
         _stale = False
     if _open:
         up = _open[-1]
@@ -132,7 +140,17 @@ def add(key: str, n) -> None:
         attrs[key] = attrs.get(key, 0) + n
 
 
+def add_later(key: str, count: Callable[[], float]) -> None:
+    """Add ``count()`` to the count ``key`` of the innermost open span,
+    calling it when :func:`spans` next returns the record."""
+    if _profiler._is_profiler_enabled and _open:
+        _later.append((_open[-1].attrs, key, count))
+
+
 def spans() -> List[Span]:
     """The record: every span of the latest traced stretch, in the order
-    they opened."""
+    they opened, with the counts of :func:`add_later` added."""
+    for attrs, key, count in _later:
+        attrs[key] = attrs.get(key, 0) + count()
+    _later.clear()
     return list(_records)
