@@ -15,17 +15,16 @@ Phases:
      bit-identical) and at the FinBench workload shape, and time kernel,
      plain version and a ``torch.matmul`` fp32 yardstick;
   3. the SNB main path: ``snb_like(seed=0)`` through ``GraphSession``,
-     timed one read and one write at a time as the workload driver's
-     table (each read without views, one warm-up and 3 timed runs, the
-     median kept; three fused view builds; each read with views, equal
-     rows; CE/DE/DV with views and as the raw graph mutation without,
-     ``check_consistency``); then the cost of a closure's flag read
-     beside one more hop at Q1's shape, and Q1's closure iterations;
-  4. FinBench through the kernel, timed the same way: a session with dense
-     hops on ``block_spmm`` against a segment-hop session, reads bit-exact
-     in reach rows and DBHit/Rows, writes keeping every view consistent;
-     the share of u8 K slabs that took the CUDA cores in phases 3-4 is
-     read after;
+     the workload driver's table run as checks: each read without views,
+     three fused view builds, each read with views equal in rows to the
+     same read without, then CE/DE/DV with recover and every view
+     ``check_consistency``; it reports the reads compared, the views
+     checked and the writes' targets (``mvbench/`` times this path);
+  4. FinBench the same way through the kernel: a session with dense hops
+     on ``block_spmm`` against a segment-hop session, every read bit-exact
+     in reach rows and DBHit/Rows before and after the writes, both
+     sessions' views consistent and storing the same pairs; the u8 K
+     slabs that took the CUDA cores in phases 3-4 are counted after;
   5. segment aggregation: ``segment_multi_agg`` against its plain version
      at unit shapes (ragged N, W from 1 to 70, rows all valid and empty,
      one to three column chunks), and on messages bucketed from the
@@ -68,10 +67,7 @@ Phases:
      to an unsharded session on the same graph, without and with views,
      through CE/DE/DV with recover, then through a cut of phase 7a's serve
      script (every ticket and the shared groups equal); it prints the
-     sweeps by owner shard, its seconds and its peak device memory, and
-     one ``torch.profiler`` trace of the unsharded session's SNB Q1, a
-     full read from Comment (device busy share, device-to-host copy time,
-     syncs), taken here as the smoke's last profiler use;
+     sweeps by owner shard, its seconds and its peak device memory;
  10. the side stacks: (a) PNA at full width on a padded random graph of
      2,708 nodes and 10,556 edges, forward pass, loss and gradient on the
      card equal to the CPU's, timed; PNA's aggregation (segment ops, the
@@ -262,12 +258,6 @@ ATTN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2 ** -7, 1e-4)}
 SERVE_CLIENTS = 16
 SERVE_ROUNDS = 2
 ONLINE_ROUNDS = 4
-# phases 3-4: each read and write timed alone, as the workload driver's
-# table (benchmarks/workload_driver.py::run_workload): one warm-up, then
-# this many runs, the median kept; cut from the workload driver's 3 to 2 once
-# phase 13 joined (the whole call took 686.0 s of command on an NVIDIA H100
-# 80GB HBM3 at 700 W with 3)
-READ_REPEATS = 2
 # phase 9: the sharded session, 4 logical shards on one card, and the cut
 # of phase 7a's serve script it serves beside its unsharded twin (with the
 # scheduler's window pinned, so both make the same decisions); on SNB cut
@@ -774,8 +764,9 @@ def write_targets(sess, rng):
     return eid, (src, dst, elabel), nid
 
 
-def run_writes(sess, seed: int = 0) -> None:
-    """CE, DE and DV with recover, as the paper workload runs them."""
+def run_writes(sess, seed: int = 0) -> dict:
+    """CE, DE and DV with recover, as the paper workload runs them; returns
+    their targets."""
     from repro_torch.core import graph as G
     from repro_torch.utils import host
     eid, (src, dst, elabel), nid = write_targets(sess, np.random.default_rng(seed))
@@ -795,11 +786,14 @@ def run_writes(sess, seed: int = 0) -> None:
         if int(e_lab[e]) not in view_lids:
             sess.create_edge(int(e_src[e]), int(e_dst[e]),
                              sess.schema.edge_labels.name_of(int(e_lab[e])))
+    return {"CE": [src, dst, elabel], "DE": eid, "DV": nid}
 
 
-def check_views(sess, what: str) -> None:
+def check_views(sess, what: str) -> list:
+    """Every view of ``sess`` consistent; returns their names."""
     for name in sess.views:
         check(sess.check_consistency(name), f"{what}: view {name} inconsistent")
+    return list(sess.views)
 
 
 def sync(device) -> None:
@@ -807,94 +801,21 @@ def sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def timed(fn, repeats: int, device):
-    """The workload driver's ``_time``, with the median in place of the
-    mean: one warm-up call, then ``repeats`` calls, each synced."""
-    out = fn()
-    sync(device)
-    ts = []
-    for _ in range(repeats):
-        t0 = time.perf_counter()
-        out = fn()
-        sync(device)
-        ts.append(time.perf_counter() - t0)
-    return float(np.median(ts)), out
-
-
-def write_times(sess, repeats: int, seed: int = 0) -> dict:
-    """CE, DE and DV timed as the workload driver times them: each with
-    views (the maintained session write and its recover) and as the raw
-    graph mutation without them (on a local graph value, so the session is
-    untouched); DV once each way."""
-    from repro_torch.core import graph as G
-    from repro_torch.utils import host
-    eid, (src, dst, elabel), nid = write_targets(
-        sess, np.random.default_rng(seed))
-    lid = sess.schema.edge_labels.intern(elabel)
-    dev = sess.device
-
-    def ce_with():
-        sess.delete_edge(sess.create_edge(src, dst, elabel))
-
-    def ce_without():
-        g = sess.g
-        slot = int(G.free_edge_slots(g, 1)[0])
-        G.delete_edge(G.create_edge(g, slot, src, dst, lid), slot)
-
-    cur = [eid]
-
-    def de_with():
-        sess.delete_edge(cur[0])
-        cur[0] = sess.create_edge(src, dst, elabel)      # recover
-
-    def de_without():
-        G.create_edge(G.delete_edge(sess.g, cur[0]), cur[0], src, dst, lid)
-
-    out = {}
-    for name, fw, fo in (("CE", ce_with, ce_without),
-                         ("DE", de_with, de_without)):
-        out[name] = {"with_s": timed(fw, repeats, dev)[0],
-                     "without_s": timed(fo, repeats, dev)[0]}
-    g = sess.g
-    e_alive, e_src = host(g.edge_alive), host(g.edge_src)
-    e_dst, e_lab = host(g.edge_dst), host(g.edge_label)
-    inc = np.flatnonzero(e_alive & ((e_src == nid) | (e_dst == nid)))
-    nlabel, nkey = int(host(g.node_label)[nid]), int(host(g.node_key)[nid])
-    sync(dev)
-    t0 = time.perf_counter()
-    sess.delete_node(nid)
-    sync(dev)
-    dv_with = time.perf_counter() - t0
-    sess.g = G.create_node(sess.g, nid, nlabel, nkey)    # recover
-    view_lids = {v.label_id for v in sess.views.values()}
-    for e in inc:
-        if int(e_lab[e]) not in view_lids:
-            sess.create_edge(int(e_src[e]), int(e_dst[e]),
-                             sess.schema.edge_labels.name_of(int(e_lab[e])))
-    sync(dev)
-    t0 = time.perf_counter()
-    G.delete_node(sess.g, nid)
-    sync(dev)
-    out["DV"] = {"with_s": dv_with, "without_s": time.perf_counter() - t0}
-    return out
-
-
-def workload_times(sess, wl, repeats: int, twin=None,
-                   what: str = "") -> dict:
-    """The workload driver's table on one session: each read timed without
-    views, the views built (seconds each), each read timed with views and
-    held to its rows without; then CE/DE/DV (:func:`write_times`) and every
-    view consistent.  With ``twin`` (a session of another backend), every
-    read's rows and DBHit/Rows must equal the twin's, read by read, and the
-    twin's views must store the same pairs after the same writes."""
-    rec = {"read_without_s": [], "read_with_s": [], "view_s": {}}
+def workload_checks(sess, wl, twin=None, what: str = "") -> dict:
+    """The workload driver's table on one session, as checks: each read
+    without views, the views built, each read with views held to its rows
+    without; then CE/DE/DV (:func:`run_writes`) and every view consistent.
+    With ``twin`` (a session of another backend), every read's rows and
+    DBHit/Rows must equal the twin's, read by read, and the twin's views
+    must store the same pairs after the same writes.  Returns what was
+    checked: the reads compared each way, the views checked after the
+    writes and the writes' targets."""
+    rec = {"reads_compared": {"without_views": 0, "with_views": 0}}
     base = []
 
     def reads(use_views: bool, key: str) -> None:
         for i, q in enumerate(wl.reads):
-            t, res = timed(lambda q=q: sess.query(q, use_views=use_views),
-                           repeats, sess.device)
-            rec[key].append(t)
+            res = sess.query(q, use_views=use_views)
             if twin is not None:
                 rt = twin.query(q, use_views=use_views)
                 check(np.array_equal(res.reach, rt.reach)
@@ -908,20 +829,20 @@ def workload_times(sess, wl, repeats: int, twin=None,
                       f"without")
             else:
                 base.append((res.reach, res.num_results()))
+            rec["reads_compared"][key] += 1
 
-    reads(False, "read_without_s")
+    reads(False, "without_views")
     for v in wl.views:
-        view = sess.create_view(v)
-        rec["view_s"][view.name] = view.creation_seconds
+        sess.create_view(v)
         if twin is not None:
             twin.create_view(v)
-    reads(True, "read_with_s")
+    reads(True, "with_views")
     base.clear()
     check_views(sess, f"{what} after build")
-    rec["writes"] = write_times(sess, repeats)
-    check_views(sess, f"{what} after CE/DE/DV")
+    rec["writes"] = run_writes(sess)
+    rec["views_checked"] = check_views(sess, f"{what} after CE/DE/DV")
     if twin is not None:
-        write_times(twin, repeats)      # the same writes, slot for slot
+        run_writes(twin)                # the same writes, slot for slot
         check_views(twin, f"{what} twin after CE/DE/DV")
         for name in sess.views:
             check(sess.views[name].pair_slot == twin.views[name].pair_slot,
@@ -929,130 +850,8 @@ def workload_times(sess, wl, repeats: int, twin=None,
     return rec
 
 
-def read_trace(sess, q: str, use_views: bool = False) -> dict:
-    """One ``torch.profiler`` trace of a warm read: the device's busy time
-    (the union of its kernels' and copies' intervals), the share of the
-    traced wall clock that is, the device-to-host copy time, and the host's
-    syncs (``cudaStreamSynchronize``/``cudaDeviceSynchronize`` calls, and
-    the port's own ``host``/``host_flag`` counts where it has them)."""
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch import utils
-    sess.query(q, use_views=use_views)
-    torch.cuda.synchronize()
-    counts = {f: getattr(getattr(utils, f, None), "calls", None)
-              for f in ("host", "host_flag")}
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sess.query(q, use_views=use_views)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    dev, d2h, syncs, host_start = [], 0.0, 0, None
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            dev.append((e.time_range.start, e.time_range.end))
-            if "DtoH" in e.name or "Device -> Pageable" in e.name:
-                d2h += e.time_range.elapsed_us()
-            continue
-        if host_start is None or e.time_range.start < host_start:
-            host_start = e.time_range.start
-        if e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize"):
-            syncs += 1
-    busy, last = 0.0, None
-    for a, b in sorted(dev):
-        if last is None or a > last:
-            busy += b - a
-            last = b
-        elif b > last:
-            busy += b - last
-            last = b
-    first, end = (min(a for a, _ in dev), max(b for _, b in dev)) if dev \
-        else (0.0, 0.0)
-    rec = {"wall_ms": wall * 1e3, "device_ops": len(dev),
-           "device_busy_ms": busy / 1e3,
-           "busy_share": busy / 1e3 / (wall * 1e3),
-           "device_span_ms": (end - first) / 1e3, "d2h_ms": d2h / 1e3,
-           "syncs": syncs}
-    if dev and host_start is not None:
-        # host time before the first device op, and after the last one
-        # (the pulled rows turned into the result), of the traced wall
-        rec["host_head_ms"] = (first - host_start) / 1e3
-        rec["host_tail_ms"] = wall * 1e3 - (end - host_start) / 1e3
-    for f, c0 in counts.items():
-        if c0 is not None:
-            rec[f"{f}_calls"] = getattr(utils, f).calls - c0
-    return rec
-
-
-def closure_costs(sess, q: str, iters: int = 50, max_k: int = 8) -> dict:
-    """What a closure's flag read costs beside one more hop, at ``q``'s
-    shape (its first unbounded step, one full source block of the plan's
-    sources): per iteration, a hop on an empty frontier alone and the same
-    hop followed by the flag read (CUDA events over ``iters`` iterations in
-    a row); then, for each source block, the hops until the frontier
-    empties (the closure's iterations: hops from the sources less the
-    step's lower bound), and for each fixed stride k what those blocks
-    would pay with ``plan.CLOSURE_SYNC_EVERY = k``: a flag read after the
-    first iteration and then every k, and the iterations run past the
-    empty frontier."""
-    from repro_torch.core.executor import (
-        _active_rows_per_source, _hop_segment, _init_frontier)
-    from repro_torch.core.plan import ExpandStep
-    from repro_torch.core.parser import parse_query
-    from repro_torch.utils import INF_HOPS
-    plan, _ = sess.planner.plan(parse_query(q), [], 0)
-    step = next(s for s in plan.steps if isinstance(s, ExpandStep)
-                and s.max_hops == INF_HOPS)
-    esrc, edst, ew, emask = sess.engine.label_edges(step.label_id,
-                                                    step.preds)
-    blk, N = sess.cfg.src_block, sess.g.node_cap
-    F = torch.zeros((blk, N), dtype=torch.bool, device=sess.device)
-
-    def hop():
-        nxt = _hop_segment(F, esrc, edst, emask, ew, counting=False,
-                           reverse=step.reverses[0])
-        return (F | nxt), (nxt & ~F), _active_rows_per_source(nxt)
-
-    def hop_and_flag():
-        bool(hop()[1].any())
-
-    rec = {"edges": int(esrc.shape[0]), "hop_ms": cuda_ms(hop, iters),
-           "hop_and_flag_ms": cuda_ms(hop_and_flag, iters)}
-    sync_ms = rec["hop_and_flag_ms"] - rec["hop_ms"]
-    srcs = plan.default_sources()
-    hops = []
-    for b0 in range(0, srcs.shape[0], blk):
-        ids = np.full(blk, -1, np.int32)
-        part = srcs[b0:b0 + blk]
-        ids[:part.shape[0]] = part
-        reach = frontier = _init_frontier(
-            torch.from_numpy(ids).to(sess.device), N, False)
-        n = 0
-        while bool(frontier.any()):
-            nxt = _hop_segment(frontier, esrc, edst, emask, ew,
-                               counting=False, reverse=step.reverses[0])
-            frontier, reach = nxt & ~reach, reach | nxt
-            n += 1
-        hops.append(max(n - max(step.min_hops, 0), 1))
-    rec["closure_iterations"] = {"blocks": len(hops), "min": min(hops),
-                                 "median": float(np.median(hops)),
-                                 "max": max(hops)}
-    cost = {}
-    for k in range(1, max_k + 1):
-        reads = sum(1 + -(-(t - 1) // k) for t in hops)
-        waste = sum(1 + -(-(t - 1) // k) * k - t for t in hops)
-        cost[k] = reads * sync_ms + waste * rec["hop_ms"]
-    rec["sync_ms"] = sync_ms
-    rec["stride_cost_ms"] = cost
-    rec["best_stride"] = min(cost, key=cost.get)
-    return rec
-
-
-def snb_phase(scale: float = 1.0, device: str = "cuda",
-              repeats: int = READ_REPEATS, trace: bool = True) -> dict:
-    """SNB's table; on the card also the closure's flag-read cost and,
-    with ``trace``, the Q1 trace (the smoke takes it in phase 9 instead:
-    a large trace here cost phase 5's profiler two of its events)."""
+def snb_phase(scale: float = 1.0, device: str = "cuda") -> dict:
+    """SNB's table as checks (:func:`workload_checks`)."""
     from repro_torch.configs.mv4pg import SNB_WORKLOAD as WL
     from repro_torch.core import GraphSession
     from repro_torch.data.synthetic import snb_like
@@ -1062,19 +861,14 @@ def snb_phase(scale: float = 1.0, device: str = "cuda",
     sess = GraphSession(g, schema, device=device)
     log(f"phase 3: snb_like nodes={g.num_nodes()} edges={g.num_edges()} "
         f"node_cap={g.node_cap}")
-    rec = workload_times(sess, WL, repeats, what="SNB")
-    out = {"nodes": g.num_nodes(), "node_cap": g.node_cap, "times": rec}
-    if torch.device(device).type == "cuda":
-        out["closure_q1"] = closure_costs(sess, WL.reads[0])
-        if trace:
-            out["trace_q1"] = read_trace(sess, WL.reads[0])
-    return out
+    return {"nodes": g.num_nodes(), "node_cap": g.node_cap,
+            "checks": workload_checks(sess, WL, what="SNB")}
 
 
-def finbench_phase(scale: float = 1.0, device: str = "cuda",
-                   repeats: int = READ_REPEATS) -> dict:
-    """Session K (dense hops on ``block_spmm``) timed read by read and
-    write by write, every read held to session S (segment hops)."""
+def finbench_phase(scale: float = 1.0, device: str = "cuda") -> dict:
+    """Session K (dense hops on ``block_spmm``) held read by read and write
+    by write to session S (segment hops), and read by read once more after
+    the writes."""
     from repro_torch.configs.mv4pg import FINBENCH_WORKLOAD as WL
     from repro_torch.core import ExecConfig, GraphSession
     from repro_torch.data.synthetic import finbench_like
@@ -1089,13 +883,14 @@ def finbench_phase(scale: float = 1.0, device: str = "cuda",
     K, S = sessions["K"], sessions["S"]
     log(f"phase 4: finbench_like nodes={K.g.num_nodes()} "
         f"node_cap={K.g.node_cap}")
-    rec = workload_times(K, WL, repeats, twin=S, what="FinBench")
+    rec = workload_checks(K, WL, twin=S, what="FinBench")
     for i, q in enumerate(WL.reads):
         rk, rs = K.query(q, use_views=True), S.query(q, use_views=True)
         check(np.array_equal(rk.reach, rs.reach)
               and rk.metrics == rs.metrics,
               f"FinBench Q{i + 1} after writes: kernel session differs")
-    return {"times": rec,
+    rec["reads_compared"]["after_writes"] = len(WL.reads)
+    return {"checks": rec,
             "max_memory_allocated": (torch.cuda.max_memory_allocated()
                                      if device == "cuda" else None)}
 
@@ -1350,8 +1145,6 @@ def sharded_phase(scale: float = 1.0, device: str = "cuda",
             del got, want
 
     reads(False)
-    if dev.type == "cuda":        # the smoke's last profiler use: phase 3's
-        rec["trace_q1"] = read_trace(one, WL.reads[0])      # Q1, unsharded
     for v in WL.views:
         sh.create_view(v)
         one.create_view(v)
@@ -3190,9 +2983,11 @@ def md_moe(mesh, sz, dev) -> dict:
         def fwd():
             with torch.no_grad():
                 sharded(cf, grads=False)
-        rec["forward_ms"] = timed(fwd, 3, dev)[0] * 1e3
-        rec["forward_backward_ms"] = timed(lambda: sharded(cf), 3,
-                                           dev)[0] * 1e3
+        # one warm-up call, then the median of 3
+        rec["forward_ms"] = float(np.median(
+            _timed_steps(mesh, fwd, 4, dev)[1:])) * 1e3
+        rec["forward_backward_ms"] = float(np.median(
+            _timed_steps(mesh, lambda: sharded(cf), 4, dev)[1:])) * 1e3
     return rec
 
 
@@ -3847,19 +3642,12 @@ def run_multidevice(seconds: dict) -> dict:
     return rec
 
 
-def log_workload(what: str, rec: dict) -> None:
-    """Phases 3-4's table: each read's median seconds without and with
-    views, the views' build seconds, CE/DE/DV with and without views, and
-    (SNB) the Q1 trace and the closure's flag-read cost."""
-    t = rec["times"]
-    log(f"{what} reads one by one (median of {READ_REPEATS}, s): without "
-        f"views {json.dumps(t['read_without_s'])}; with views "
-        f"{json.dumps(t['read_with_s'])}; view builds "
-        f"{json.dumps(t['view_s'])}")
-    log(f"{what} writes one by one (s): {json.dumps(t['writes'])}")
-    for key in ("trace_q1", "closure_q1"):
-        if key in rec:
-            log(f"{what} {key}: {json.dumps(rec[key])}")
+def log_checks(what: str, rec: dict, launches: int) -> None:
+    """What phase 3 or 4 checked: the reads compared, the views checked
+    after the writes, the writes' targets; and its ``block_spmm``
+    launches."""
+    log(f"{what}: block_spmm launches {launches}; checked "
+        + json.dumps(rec["checks"]))
 
 
 def run_sharded(ops, seconds: dict) -> dict:
@@ -3884,13 +3672,18 @@ def probe(only: list, seconds: dict) -> int:
     card; prints no result line."""
     from repro_torch.kernels import ops
     if "snb" in only:
+        reset_launches(ops)
         t0 = time.perf_counter()
-        log_workload("phase 3: SNB", snb_phase())
+        snb = snb_phase()
         seconds["snb"] = time.perf_counter() - t0
+        log_checks("phase 3: SNB", snb, ops.block_spmm.launches)
     if "finbench" in only:
+        reset_launches(ops)
         t0 = time.perf_counter()
-        log_workload("phase 4: FinBench session K", finbench_phase())
+        fin = finbench_phase()
         seconds["finbench"] = time.perf_counter() - t0
+        log_checks("phase 4: FinBench session K == session S", fin,
+                   ops.block_spmm.launches)
     if "sharded" in only:
         run_sharded(ops, seconds)
     if "pna" in only or "llm" in only:
@@ -3949,7 +3742,7 @@ def main() -> int:
     reset_launches(ops)
     ops.spmm_slow_slabs("cuda").zero_()
     t0 = time.perf_counter()
-    snb = snb_phase(trace=False)
+    snb = snb_phase()
     seconds["snb"] = time.perf_counter() - t0
     snb_launches = ops.block_spmm.launches
     torch.cuda.reset_peak_memory_stats()
@@ -3962,11 +3755,10 @@ def main() -> int:
     check(launches > 0, "the main path never launched block_spmm")
     check(spmm_routes["tc"] == launches,
           f"the main path's block_spmm left the u8 route: {spmm_routes}")
-    log_workload("phase 3: SNB", snb)
-    log(f"phase 3: block_spmm launches {snb_launches}")
-    log_workload("phase 4: FinBench session K", fin)
-    log(f"phase 4: block_spmm launches {launches - snb_launches}; "
-        f"max_memory_allocated {fin['max_memory_allocated']} B")
+    log_checks("phase 3: SNB", snb, snb_launches)
+    log_checks("phase 4: FinBench session K == session S", fin,
+               launches - snb_launches)
+    log(f"phase 4: max_memory_allocated {fin['max_memory_allocated']} B")
     slab_maps = ops.spmm_slab_map.launches
     check(0 < slab_maps <= launches,
           f"the main path built {slab_maps} slab maps for {launches} "

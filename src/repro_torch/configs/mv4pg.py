@@ -2,7 +2,7 @@
 
 Defines the SNB-like and FinBench-like workloads mirroring the paper's
 evaluation: 3 views per dataset, 7 read + 3 write statements (CE/DE/DV).
-Benchmarks consume these; see benchmarks/bench_workload.py."""
+The benchmark is ``mvbench/`` (``mvbench/configs/*.json`` carry these workloads)."""
 from __future__ import annotations
 
 from dataclasses import dataclass

@@ -245,16 +245,16 @@ def test_chip_smoke_phases_rehearse_on_cpu():
     spec = importlib.util.spec_from_file_location("chip_smoke", SMOKE)
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    snb = smoke.snb_phase(0.02, device="cpu", repeats=1)
+    snb = smoke.snb_phase(0.02, device="cpu")
     assert snb["nodes"] > 0
-    fin = smoke.finbench_phase(0.02, device="cpu", repeats=1)
+    fin = smoke.finbench_phase(0.02, device="cpu")
     assert fin["max_memory_allocated"] is None
-    for rec in (snb["times"], fin["times"]):
-        assert len(rec["read_without_s"]) == len(rec["read_with_s"]) == 7
-        assert len(rec["view_s"]) == 3
+    assert fin["checks"]["reads_compared"]["after_writes"] == 7
+    for rec in (snb["checks"], fin["checks"]):
+        compared = rec["reads_compared"]
+        assert compared["without_views"] == compared["with_views"] == 7
+        assert len(rec["views_checked"]) == 3
         assert set(rec["writes"]) == {"CE", "DE", "DV"}
-        assert all(t["with_s"] > 0 and t["without_s"] > 0
-                   for t in rec["writes"].values())
 
 
 def test_chip_smoke_sharded_phase_rehearses_on_cpu():
