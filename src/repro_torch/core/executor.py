@@ -93,15 +93,17 @@ class ReachResult:
     """Reachability of one query: per-source rows over all node columns."""
 
     src_ids: np.ndarray             # [S] int32 source node ids
-    reach: np.ndarray               # [S, N_cap] int32 counts (bool -> 0/1)
+    reach: np.ndarray               # [S, N_cap] int32 walk counts, or bool
+    #                                 reachability under set semantics
     counting: bool
     metrics: Metrics = field(default_factory=Metrics)
 
     def pairs(self) -> PairRows:
-        """(src, dst, count) for every reachable pair."""
+        """(src, dst, count) for every reachable pair; ``count`` is int32
+        either way (1s under set semantics: only the nonzeros are cast)."""
         rows, cols = np.nonzero(self.reach)
         return PairRows(self.src_ids[rows], cols.astype(np.int32),
-                        self.reach[rows, cols])
+                        self.reach[rows, cols].astype(np.int32, copy=False))
 
     def num_results(self) -> int:
         """Bag cardinality (sum of path counts) — what RETURN n,m yields."""
@@ -763,7 +765,9 @@ class PathExecutor:
 
     def run_path(self, path: PathPattern, counting: Optional[bool] = None,
                  sources: Optional[np.ndarray] = None) -> ReachResult:
-        """Evaluate a full path pattern; returns per-source reach + metrics."""
+        """Evaluate a full path pattern; returns per-source reach + metrics:
+        int32 walk counts, or bool reachability under set semantics (the
+        rows a fused :class:`~repro_torch.core.plan.CompiledPlan` gives)."""
         if counting is None:
             counting = not any(r.unbounded for r in path.rels)
         if counting and any(r.unbounded for r in path.rels):
@@ -798,7 +802,8 @@ class PathExecutor:
                     F, self.schema.node_label_id(nxt.label), nxt.key,
                     normalize_preds(nxt.preds))
             out_rows.append(host(F))
-        reach = np.concatenate(out_rows, axis=0)[:S].astype(np.int32)
+        reach = np.concatenate(out_rows, axis=0)[:S].astype(
+            np.int32 if counting else np.bool_, copy=False)
         return ReachResult(src_ids=sources, reach=reach, counting=counting,
                            metrics=metrics)
 

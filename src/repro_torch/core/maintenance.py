@@ -563,7 +563,7 @@ def affected_sources_edges(templates: ViewTemplates, vdef: ViewDef,
         starts = np.unique(starts)
         rows = _run_from(ex, tpl.prefix.reversed(), starts, counting=False,
                          metrics=metrics)
-        hit |= rows.astype(bool).any(axis=0)
+        hit |= rows.any(axis=0)
     return np.flatnonzero(hit).astype(np.int32)
 
 
@@ -586,7 +586,7 @@ def affected_sources_nodes(templates: ViewTemplates, vdef: ViewDef,
             continue
         rows = _run_from(ex, tpl.prefix.reversed(), ids, counting=False,
                          metrics=metrics)
-        hit |= rows.astype(bool).any(axis=0)
+        hit |= rows.any(axis=0)
     return np.flatnonzero(hit).astype(np.int32)
 
 
@@ -605,7 +605,7 @@ def affected_sources_node(templates: ViewTemplates, vdef: ViewDef,
                 continue
         row = template_prefix_row(ex, tpl, node_id, counting=False,
                                   metrics=metrics)
-        hit |= row.astype(bool)
+        hit |= row
     return np.flatnonzero(hit).astype(np.int32)
 
 
@@ -631,7 +631,7 @@ def affected_sources_edge(templates: ViewTemplates, vdef: ViewDef,
         for u in starts:
             row = template_prefix_row(ex, tpl, u, counting=False,
                                       metrics=metrics)
-            hit |= row.astype(bool)
+            hit |= row
     return np.flatnonzero(hit).astype(np.int32)
 
 

@@ -177,7 +177,7 @@ class RowResult:
     answers subsumed point bindings by gathering rows)."""
 
     sources: np.ndarray    # [S] int32 source ids, in binding order
-    reach: np.ndarray      # [S, N] int32 reach rows
+    reach: np.ndarray      # [S, N] int32 walk counts; bool under set semantics
     db_vec: np.ndarray     # [S] int64 per-row DBHit contributions
     rows_vec: np.ndarray   # [S] int64 per-row Rows contributions
     counting: bool
@@ -657,7 +657,7 @@ class CompiledPlan:
         reach, db_vec, rows_vec = _run_blocks(
             lambda ids: program(ids, node_label, node_key, node_alive,
                                 nprops, operands),
-            sizes, (padded,), dev, R, g.node_cap)
+            sizes, (padded,), dev, R, g.node_cap, self.counting)
         with trace.span("exec.result"):
             results: List[RowResult] = []
             off = 0
@@ -754,33 +754,38 @@ class CompiledPlan:
 
 
 def _run_blocks(fn, sizes: Sequence[int], row_ops: Sequence[np.ndarray],
-                device, R: int, width: int):
+                device, R: int, width: int, counting: bool):
     """Run ``fn`` over consecutive ``sizes`` blocks of the padded per-row
-    arrays ``row_ops`` and bring back (reach [R, width] int32, db_vec,
-    rows_vec); raises if a closure did not converge.
+    arrays ``row_ops`` and bring back (reach [R, width], db_vec, rows_vec):
+    int32 walk counts when ``counting``, or bool reachability under set
+    semantics; raises if a closure did not converge.
 
     The per-row arrays go to the device once.  Each block writes its F into
-    one ``[R_pad, width]`` int32 device tensor (sliced to ``width``: sharded
-    F carries pad columns; a set-semantics F is widened there, on the
-    device) and its metric vectors into ``[R_pad]`` int64 device vectors
-    (no concatenation, so no second copy); after the last block one
-    :func:`host` call pulls the rows and the metrics — one pull per batch,
-    whatever the block count.
+    one ``[R_pad, width]`` device tensor of the rows' type (sliced to
+    ``width``: sharded F carries pad columns; a set-semantics F is bool on
+    every route and is copied as it is, one byte an entry) and its metric
+    vectors into ``[R_pad]`` int64 device vectors (no concatenation, so no
+    second copy); after the last block one :func:`host` call pulls the rows
+    and the metrics — one pull per batch, whatever the block count.
 
     On a CUDA device the rows land in a page-locked ``[R, width]`` tensor
-    from the caching pinned-host allocator (:func:`pinned_empty`), taken
-    before the wait below so that it overlaps the hops: one DMA, and its
-    memory is the result.  A kept result keeps its block, so no later
-    batch writes into it.  On the CPU the result is the device tensor's own
-    memory, fresh for each call.
+    of the same type from the caching pinned-host allocator
+    (:func:`pinned_empty`), taken before the wait below so that it overlaps
+    the hops: one DMA, and its memory is the result.  A kept result keeps
+    its block, so no later batch writes into it.  On the CPU the result is
+    the device tensor's own memory, fresh for each call.
 
     Traced, the pull is the span ``exec.pull``, entered once the device has
     run the blocks (:func:`trace.settle`), so that it times the copies
-    alone; it counts the ``bytes`` copied off a CUDA device and
-    ``pinned_new``, the blocks the pinned pool had to create for them."""
+    alone; it counts the ``rows`` it pulled and ``byte_rows``, those pulled
+    at one byte an entry (all of a set-semantics batch's, none of a
+    counting one's), on every device, and the ``bytes`` copied off a CUDA
+    device and ``pinned_new``, the blocks the pinned pool had to create for
+    them."""
     ops_dev = [torch.from_numpy(a).to(device) for a in row_ops]
     R_pad = sum(sizes)
-    reach_all = torch.empty((R_pad, width), dtype=torch.int32, device=device)
+    dtype = torch.int32 if counting else torch.bool
+    reach_all = torch.empty((R_pad, width), dtype=dtype, device=device)
     db_all = torch.zeros(R_pad, dtype=torch.int64, device=device)
     rows_all = torch.zeros(R_pad, dtype=torch.int64, device=device)
     converged = True
@@ -797,10 +802,12 @@ def _run_blocks(fn, sizes: Sequence[int], row_ops: Sequence[np.ndarray],
     met = torch.stack([db_all[:R], rows_all[:R]])
     dst = new = None
     if reach_all.is_cuda:
-        dst, new = pinned_empty((R, width), torch.int32)
+        dst, new = pinned_empty((R, width), dtype)
     trace.settle(device)
     with trace.span("exec.pull"):
         reach, met = host(reach_all[:R], met, out=dst)
+        trace.add("rows", R)
+        trace.add("byte_rows", 0 if counting else R)
         if dst is not None:
             trace.add("bytes", reach.nbytes + met.nbytes)
             trace.add("pinned_new", new)
@@ -1009,7 +1016,7 @@ class SharedProgram:
         dev = eng.shard_devices()[0] if sharded else eng.device
         reach, db_vec, rows_vec = _run_blocks(
             lambda i, mi: program(i, mi, masks_st, ops_st),
-            sizes, (ids, midx), dev, R, eng.g.node_cap)
+            sizes, (ids, midx), dev, R, eng.g.node_cap, self.counting)
         results: List[List[RowResult]] = [[] for _ in plans]
         for src, (m, off, S) in zip(src_parts, layout):
             results[m].append(RowResult(

@@ -65,7 +65,9 @@ def test_card_rows_are_pinned_and_equal_the_hosts(card, cfg):
     on_card, on_host = build("cuda", cfg), build("cpu", cfg)
     for q in READS:
         got, want = on_card.query(q), on_host.query(q)
-        assert got.reach.dtype == np.int32 and got.reach.flags.c_contiguous
+        assert got.reach.dtype == want.reach.dtype == (
+            np.int32 if got.counting else np.bool_)
+        assert got.reach.flags.c_contiguous
         assert got.reach.shape == (got.src_ids.shape[0], on_card.g.node_cap)
         np.testing.assert_array_equal(got.src_ids, want.src_ids)
         np.testing.assert_array_equal(got.reach, want.reach, err_msg=q)

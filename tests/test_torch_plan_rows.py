@@ -202,13 +202,16 @@ SET_READ = QUERIES[6]            # an unbounded one: reachability, bool F
 @pytest.mark.parametrize("backend", ["segment", "dense"])
 @pytest.mark.parametrize("q", [COUNTING_READ, SET_READ])
 def test_a_reads_rows_are_one_dense_int32_array(q, backend):
-    """A read's ``reach`` is one C-contiguous int32 ``[S, node_cap]`` array
-    equal to the reference's, for a counting read and a set-semantics
-    read, whose bool frontier is widened on the device."""
+    """A read's ``reach`` is one C-contiguous ``[S, node_cap]`` array equal
+    by value to the reference's int32 rows: int32 for a counting read, and
+    for a set-semantics read its bool frontier as it is, one byte an
+    entry."""
     ps = build(P, seed=5, cfg=P.ExecConfig(backend=backend))
     got, want = ps.query(q), build(R, seed=5).query(q)
     assert got.counting == (q == COUNTING_READ)
-    assert got.reach.dtype == np.int32 and got.reach.flags.c_contiguous
+    assert got.reach.dtype == (np.int32 if got.counting else np.bool_)
+    assert np.asarray(want.reach).dtype == np.int32
+    assert got.reach.flags.c_contiguous
     assert got.reach.shape == (got.src_ids.shape[0], ps.g.node_cap)
     np.testing.assert_array_equal(got.src_ids, np.asarray(want.src_ids))
     np.testing.assert_array_equal(got.reach, np.asarray(want.reach))
@@ -249,7 +252,9 @@ def test_sharded_rows_pull_once_and_match(shards):
         assert host.calls - h0 == 1, q
         want = ref.planner.plan(R.parse_query(q), [], 0)[0].execute_rows(srcs)
         for rp, ra, rr in zip(got, a.execute_rows(srcs), want):
-            assert rp.reach.dtype == np.int32 and rp.reach.flags.c_contiguous
+            assert rp.reach.dtype == (np.int32 if rp.counting else np.bool_)
+            assert np.asarray(rr.reach).dtype == np.int32
+            assert rp.reach.flags.c_contiguous
             assert rp.reach.shape == (len(rp.sources), one.g.node_cap)
             same_rows(rp, ra, q)
             np.testing.assert_array_equal(rp.reach, np.asarray(rr.reach), q)

@@ -139,6 +139,12 @@ def test_precomputed_build_matches_reference(stale):
     assert out[P] == out[R]
 
 
+def rows_bytes(res):
+    """A result's rows by value, as int32 bytes: the port's set-semantics
+    rows are bool, the reference's int32."""
+    return np.asarray(res.reach).astype(np.int32).tobytes()
+
+
 def online_run(pkg, scenario):
     sizes = dict(n_person=200, n_post=120, n_comment=300, n_tag=30)
     sess = session(pkg, sizes)
@@ -181,7 +187,7 @@ def online_run(pkg, scenario):
                      st.creates, st.drops, st.reused_builds,
                      eng.stats.auto_creates, eng.stats.auto_drops),
         "actions": list(st.actions),
-        "reads": [(t.result.src_ids.tolist(), t.result.reach.tobytes(),
+        "reads": [(t.result.src_ids.tolist(), rows_bytes(t.result),
                    t.result.metrics.db_hits, t.result.metrics.rows, t.via)
                   for t in tickets],
     }
